@@ -18,6 +18,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -129,19 +130,48 @@ def phase_device():
     return smi
 
 
+def ptxas_by_kernel(text: str) -> dict:
+    """``-Xptxas -v`` output -> {entry: {registers, stack_bytes,
+    spill_stores, spill_loads, static_smem_bytes}}, entries named by the
+    ``fused_mlp_*_kernel`` part of the mangled name."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", ln)
+        if m:
+            k = re.search(r"(fused_mlp_[a-z0-9]+_kernel)", m.group(1))
+            cur = out.setdefault(k.group(1) if k else m.group(1),
+                                 {"static_smem_bytes": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            cur["static_smem_bytes"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from ucnerf_torch.kernels import build
     t0 = time.perf_counter()
     res = build.build("fused_mlp")
-    ptxas = [ln.strip() for ln in res["ptxas"].splitlines()
-             if "registers" in ln or "spill" in ln]
     log("build", kernel="fused_mlp", seconds=time.perf_counter() - t0,
-        nvcc_seconds=res["seconds"], ptxas=ptxas)
+        nvcc_seconds=res["seconds"], ptxas=ptxas_by_kernel(res["ptxas"]))
 
 
 def phase_k1(cfg, dev):
     """K1 against its plain version at the serving shape and a ragged one."""
-    from ucnerf_torch.kernels.fused_mlp import FusedNeRFMLP, fused_nerf_mlp
+    from ucnerf_torch.kernels.fused_mlp import (FusedNeRFMLP, fused_nerf_mlp,
+                                                kernel_attrs)
     from ucnerf_torch.models.factory import create_models, init_params
 
     params = init_params(cfg, torch.Generator().manual_seed(0), dev)
@@ -204,7 +234,16 @@ def phase_k1(cfg, dev):
     res.update(times, macs_per_point=macs, flops=flops, bytes=nbytes,
                bound_bf16_ms=bound["bf16"], bound_f32_ms=bound["f32"],
                bound_by_bf16=("operations" if flops / PEAK_BF16
-                              >= nbytes / PEAK_BYTES else "bytes"))
+                              >= nbytes / PEAK_BYTES else "bytes"),
+               # achieved rate and the share of the bound reached
+               bf16_tflops=flops / times["bf16_ms"] / 1e9,
+               f32_tflops=flops32 / times["f32_ms"] / 1e9,
+               bf16_bound_share=bound["bf16"] / times["bf16_ms"],
+               f32_bound_share=bound["f32"] / times["f32_ms"],
+               # registers, spill (local) bytes, dynamic shared memory and
+               # residency of each kernel, read back from the runtime
+               attrs={dt: kernel_attrs(dt == "bf16", cfg.view_num)
+                      for dt in ("bf16", "f32")})
     log("k1", **res)
     return res
 

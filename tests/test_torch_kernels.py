@@ -54,6 +54,21 @@ def test_pack_rejects_shapes_the_kernel_does_not_take():
         pack_mlp_weights(nerf)
 
 
+def test_bf16_pack_on_cpu_runs_plain_version():
+    """A bf16 ``PackedMLP`` on CPU tensors gives the plain bf16 MLP
+    exactly, and launches nothing."""
+    mlps, cfg = _mlps(7, "cpu")
+    packed = pack_mlp_weights(mlps["bfloat16"])
+    assert packed.use_bf16
+    x = _inputs(3, 5, cfg.feat_dim, "cpu")
+    before = fused_nerf_mlp.launches
+    with torch.no_grad():
+        got = fused_nerf_mlp(*x, packed)
+        want = mlps["bfloat16"](*x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert fused_nerf_mlp.launches == before
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -64,12 +79,16 @@ def card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("view_num,n_rays,n_samples",
-                         [(7, 1024, 90), (7, 37, 90), (4, 33, 12)])
+                         [(7, 1024, 90), (7, 37, 90), (4, 33, 12),
+                          (7, 1, 12), (7, 64, 12), (7, 43, 3)])
 def test_fused_mlp_matches_plain(card, view_num, n_rays, n_samples):
     """f32: max abs err <= 1e-4 against the plain f32 MLP.  bf16: the JAX
     package's bounds against that f32 truth (mean error within 2x the plain
-    bf16 version's + 5e-3, 99th percentile <= 0.25).  Ragged point counts
-    exercise the kernel's masked last tile."""
+    bf16 version's + 5e-3, 99th percentile <= 0.25), and a mean abs diff to
+    the plain bf16 version of 1e-4 (both round at the same points).  Ragged
+    point counts exercise the masked last tile; at the bf16 kernel's
+    128-point blocks: 12 points (less than a block), 768 (six blocks) and
+    129 (one point past a block)."""
     mlps, cfg = _mlps(view_num, card)
     x = _inputs(n_rays, n_samples, cfg.feat_dim, card, seed=n_rays)
     before = fused_nerf_mlp.launches
@@ -84,3 +103,4 @@ def test_fused_mlp_matches_plain(card, view_num, n_rays, n_samples):
     err = (k16 - truth).abs()
     assert err.mean() <= 2 * (p16 - truth).abs().mean() + 5e-3
     assert torch.quantile(err.flatten(), 0.99) <= 0.25
+    assert (k16 - p16).abs().mean() <= 1e-4

@@ -15,9 +15,12 @@ from ucnerf_tpu.pallas.mlp_kernel import _LAYER_NAMES, pack_mlp_weights
 from ucnerf_tpu.utils.checkpoint_io import export_nerf_state_dict
 
 from ucnerf_torch.config import Config
-from ucnerf_torch.kernels.fused_mlp import (LAYER_NAMES, FusedNeRFMLP,
-                                            fused_nerf_mlp, layer_blocks,
-                                            pack_mlp_weights as t_pack)
+from ucnerf_torch.kernels.fused_mlp import (BF16_STEPS, LAYER_NAMES,
+                                            FusedNeRFMLP, fused_nerf_mlp,
+                                            layer_blocks,
+                                            pack_mlp_weights as t_pack,
+                                            shuffle_b_fragments as t_shuffle,
+                                            unshuffle_b_fragments)
 from ucnerf_torch.models.factory import create_models, init_params
 from ucnerf_torch.utils.checkpoint_io import nerf_state_dict_from_jax
 
@@ -81,8 +84,11 @@ def test_state_dict_from_jax_matches_export(case):
 
 
 def test_packing_follows_pallas_order(case):
-    """Layer order, kernels and biases equal ``pack_mlp_weights``; the
-    packed buffer holds each block zero-padded where the table says."""
+    """Layer order, kernels and biases equal ``pack_mlp_weights``; the f32
+    packed buffer holds each block zero-padded, row-major, where the table
+    says.  The bf16 pack holds the ``BF16_STEPS`` blocks in mma.sync
+    B-fragment order: each unshuffles to its zero-padded [K, N] block, whose
+    parts give back their layers column for column."""
     nerf = _port_mlp(case)
     assert LAYER_NAMES == _LAYER_NAMES
     blocks = layer_blocks(nerf)
@@ -106,6 +112,56 @@ def test_packing_follows_pallas_order(case):
         np.testing.assert_array_equal(pk.biases[bo:bo + m].numpy(), b)
     assert not pk.use_bf16 and table[-1, 2] + table[-1, 0] * table[-1, 1] \
         == pk.weights.numel()
+
+    pk16 = t_pack(_port_mlp(case, "bfloat16"))
+    assert pk16.use_bf16 and pk16.weights.dtype == torch.bfloat16
+    t16 = np.asarray(list(pk16.table)).reshape(len(BF16_STEPS), 4)
+    by_name = {name: (w, b) for name, w, b in blocks}
+    assert sorted(nm for parts in BF16_STEPS for nm, _ in parts) \
+        == sorted(_LAYER_NAMES)
+    for parts, (K, N, wo, bo) in zip(BF16_STEPS, t16):
+        assert K % 16 == 0 and N % 16 == 0 and wo % 8 == 0
+        blk = unshuffle_b_fragments(pk16.weights[wo:wo + K * N], K,
+                                    N).float().numpy()
+        bias = pk16.biases[bo:bo + N].numpy()
+        left = np.ones((K, N), bool)
+        col = 0
+        for name, row0 in parts:
+            w, b = by_name[name]
+            w = w.to(torch.bfloat16).float().numpy()
+            if name == "pts_linears_5":   # [pe 63 | zero row | h 128]
+                w = np.concatenate([w[:63], np.zeros((1, w.shape[1])),
+                                    w[63:]])
+            k, m = w.shape
+            np.testing.assert_array_equal(
+                blk[row0:row0 + k, col:col + m], w, name)
+            np.testing.assert_array_equal(bias[col:col + m], b.numpy())
+            left[row0:row0 + k, col:col + m] = False
+            col += m
+        assert not blk[left].any() and not bias[col:].any()
+    assert t16[-1, 2] + t16[-1, 0] * t16[-1, 1] == pk16.weights.numel()
+
+
+def test_b_fragment_order():
+    """The bf16 pack's order is the PTX ISA's m16n8k16 B fragment: lane
+    4 g + t holds (k, n) = (2 t + kl + 8 kh, g) of k-tile kt and n-tile
+    2 np + i, as its 16-byte word ((kt * N/16 + np) * 32 + lane), value
+    4 i + 2 kh + kl."""
+    K, N = 48, 32
+    w = torch.arange(K * N, dtype=torch.float32).reshape(K, N)
+    flat = t_shuffle(w).numpy()
+    kt, np_, lane, e = np.meshgrid(np.arange(K // 16), np.arange(N // 16),
+                                   np.arange(32), np.arange(8),
+                                   indexing="ij")
+    g, t = lane // 4, lane % 4
+    i, kh, kl = e // 4, (e // 2) % 2, e % 2
+    k = 16 * kt + 8 * kh + 2 * t + kl
+    n = 16 * np_ + 8 * i + g
+    pos = ((kt * (N // 16) + np_) * 32 + lane) * 8 + e
+    np.testing.assert_array_equal(flat[pos], w.numpy()[k, n])
+    torch.testing.assert_close(
+        unshuffle_b_fragments(torch.from_numpy(flat), K, N), w,
+        rtol=0, atol=0)
 
 
 def test_plain_mlp_matches_jax_f32(case):

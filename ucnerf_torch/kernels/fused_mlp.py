@@ -2,10 +2,14 @@
 
 Replaces ``ucnerf_tpu/pallas/mlp_kernel.py::fused_nerf_mlp``.  The kernel
 (``csrc/fused_mlp.cu``) is bound by its arithmetic (about 720 FLOP per
-input byte at V=7): bf16 runs on the tensor cores with f32 accumulation,
-f32 on FMA for parity.  Its weights do not fit a block's shared memory, so
-they stream through it one layer at a time and stay in L2 across blocks;
-a tile's activations never leave shared memory.  See the source's header.
+input byte at V=7).  bf16, the main path: mma.sync on the tensor cores
+with f32 accumulation, each warp's 16 points held in registers for the
+whole chain, 128 points per block sharing each pass over the weights,
+which stream from L2 through a two-stage ring in shared memory (bulk
+copies completed on mbarriers).
+The packing here merges layers that share an input into 12 blocks and
+stores each in mma.sync B-fragment order.  f32, for parity: FMA, weights
+streamed one layer at a time.  See the source's header.
 
 On a CPU tensor the wrapper runs the plain version (``models.nerf``); on a
 CUDA tensor it launches the kernel or raises.
@@ -29,7 +33,20 @@ LAYER_NAMES = ["pts_bias_depth_fine", "pts_bias_confidence",
                "confi_rgb_linear", "alpha_linear_1", "feature_linear",
                "views_linears_0", "rgb_linear", "view_confi_linears_0",
                "alpha_linear"]
-PE_PTS, PE_PTS_PAD = 63, 64
+PE_PTS = 63
+# the bf16 kernel's weight blocks, in its ring order: each is a list of
+# (layer, first input row); the parts of a block sit side by side in its
+# columns.  Three blocks merge layers that share an input, or (the last one,
+# block-diagonal) that the kernel can multiply as one.
+BF16_STEPS = [
+    [("pts_bias_depth_fine", 0)],
+    *([(f"pts_linears_{i}", 0)] for i in range(6)),
+    [("confi_rgb_linear", 0), ("alpha_linear_1", 0)],
+    [("pts_bias_confidence", 0)],
+    [("feature_linear", 0)],
+    [("views_linears_0", 0), ("view_confi_linears_0", 0)],
+    [("rgb_linear", 0), ("alpha_linear", 64)],
+]
 
 
 def _round16(n: int) -> int:
@@ -54,27 +71,51 @@ def layer_blocks(mlp: UCNeRFMLP) -> List[Tuple[str, torch.Tensor,
     return out
 
 
-def _pad_block(name: str, w: torch.Tensor, b: torch.Tensor):
-    """Zero-pad a [K, N] block to multiples of 16.  pts_linears_5's input
-    is [pe(pts) 63 | h 128], which the kernel holds as [pe 63 | 0 | h 128]:
-    its zero row goes in at row 63, not at the end."""
-    K, N = w.shape
-    Kp, Np = _round16(K), _round16(N)
-    wp = w.new_zeros((Kp, Np))
-    if name == "pts_linears_5":
-        wp[:PE_PTS, :N] = w[:PE_PTS]
-        wp[PE_PTS_PAD:PE_PTS_PAD + K - PE_PTS, :N] = w[PE_PTS:]
-    else:
-        wp[:K, :N] = w
-    bp = b.new_zeros(Np)
-    bp[:N] = b
+def kernel_rows(name: str, w: torch.Tensor) -> torch.Tensor:
+    """A layer's [K, N] kernel as the kernels index its input rows.
+    pts_linears_5's input is [pe(pts) 63 | h 128], which the kernels hold
+    as [pe 63 | 0 | h 128]: a zero row goes in at row 63."""
+    if name != "pts_linears_5":
+        return w
+    return torch.cat([w[:PE_PTS], w.new_zeros((1, w.shape[1])), w[PE_PTS:]])
+
+
+def merge_block(parts):
+    """[(kernel [k, n], bias [n], first row)] -> one [K, N] block and its
+    [N] bias, zero-padded to multiples of 16, parts side by side."""
+    K = max(r + w.shape[0] for w, _, r in parts)
+    N = sum(w.shape[1] for w, _, _ in parts)
+    wp = parts[0][0].new_zeros((_round16(K), _round16(N)))
+    bp = parts[0][1].new_zeros(_round16(N))
+    col = 0
+    for w, b, r in parts:
+        wp[r:r + w.shape[0], col:col + w.shape[1]] = w
+        bp[col:col + w.shape[1]] = b
+        col += w.shape[1]
     return wp, bp
+
+
+def shuffle_b_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A [K, N] block (multiples of 16) -> flat, in mma.sync m16n8k16
+    B-fragment order: for each k-tile kt and pair of n-tiles np, 32 lanes x
+    8 values, lane = 4 g + t holding (k, n) = (16 kt + 8 kh + 2 t + kl,
+    16 np + 8 i + g) at 4 i + 2 kh + kl.  One 16-byte load gives a lane
+    its B registers of both n-tiles."""
+    K, N = w.shape
+    return (w.reshape(K // 16, 2, 4, 2, N // 16, 2, 8)
+            .permute(0, 4, 6, 2, 5, 1, 3).reshape(-1))
+
+
+def unshuffle_b_fragments(flat: torch.Tensor, K: int, N: int):
+    """The inverse of ``shuffle_b_fragments``: flat -> [K, N]."""
+    return (flat.reshape(K // 16, N // 16, 8, 4, 2, 2, 2)
+            .permute(0, 5, 3, 6, 1, 4, 2).reshape(K, N))
 
 
 class PackedMLP(NamedTuple):
     weights: torch.Tensor      # flat, bf16 or f32
     biases: torch.Tensor       # flat f32
-    table: ctypes.Array        # (K, N, w_off, b_off) per layer
+    table: ctypes.Array        # (K, N, w_off, b_off) per weight block
     use_bf16: bool
     view_num: int
     plain: UCNeRFMLP           # the plain version, for CPU tensors
@@ -82,7 +123,9 @@ class PackedMLP(NamedTuple):
 
 def pack_mlp_weights(mlp: UCNeRFMLP) -> PackedMLP:
     """Pad and pack a ``UCNeRFMLP``'s 15 layers for the kernel, in its
-    compute dtype (``mlp.nerf.dtype``: bf16, or None for f32)."""
+    compute dtype (``mlp.nerf.dtype``: bf16, or None for f32).  f32: one
+    row-major block per layer in ``LAYER_NAMES`` order.  bf16: the blocks
+    of ``BF16_STEPS`` in B-fragment order (``shuffle_b_fragments``)."""
     nerf = mlp.nerf
     if (nerf.width, nerf.depth, nerf.skips, mlp.multires,
             mlp.multires_views) != (128, 6, (4,), 10, 4):
@@ -93,14 +136,18 @@ def pack_mlp_weights(mlp: UCNeRFMLP) -> PackedMLP:
         raise ValueError(f"the fused MLP kernel takes view_num <= 17, got "
                          f"{nerf.view_num}")
     use_bf16 = nerf.dtype == torch.bfloat16
+    layers = {name: (kernel_rows(name, w), b)
+              for name, w, b in layer_blocks(mlp)}
+    steps = (BF16_STEPS if use_bf16
+             else [[(name, 0)] for name in LAYER_NAMES])
     ws, bs, table = [], [], []
     w_off = b_off = 0
-    for name, w, b in layer_blocks(mlp):
-        wp, bp = _pad_block(name, w, b)
+    for parts in steps:
+        wp, bp = merge_block([(*layers[name], r) for name, r in parts])
         table += [wp.shape[0], wp.shape[1], w_off, b_off]
         w_off += wp.numel()
         b_off += bp.numel()
-        ws.append(wp.reshape(-1))
+        ws.append(shuffle_b_fragments(wp) if use_bf16 else wp.reshape(-1))
         bs.append(bp)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     return PackedMLP(torch.cat(ws).to(dtype).contiguous(),
@@ -117,6 +164,22 @@ def _kernel_lib():
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_attrs(use_bf16: bool, view_num: int) -> dict:
+    """What one mode's launch uses on the current card at this view count:
+    registers and local (stack or spill) bytes a thread, dynamic shared
+    memory a block, blocks resident per SM, points per block."""
+    fn = build.load("fused_mlp").ucnerf_fused_mlp_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(int(use_bf16), view_num - 1, out)
+    if err != 0:
+        raise RuntimeError(f"fused_nerf_mlp: CUDA error {err} reading the "
+                           f"kernel's attributes")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "points_per_block"), out))
 
 
 def fused_nerf_mlp(pts, dirs, feats, packed: PackedMLP):
@@ -147,6 +210,11 @@ def fused_nerf_mlp(pts, dirs, feats, packed: PackedMLP):
             raise ValueError("fused_nerf_mlp takes contiguous float32 inputs")
     if N * S >= 2 ** 31 // max(F, 4):
         raise ValueError("fused_nerf_mlp: too many points for int32 offsets")
+    if feats.data_ptr() % 16:   # the kernel copies feats rows 16 bytes at once
+        feats = feats.clone()
+    if packed.weights.data_ptr() % 16 or packed.biases.data_ptr() % 16:
+        raise ValueError("fused_nerf_mlp: packed weights and biases must be "
+                         "16-byte aligned (the kernel copies them in bulk)")
     out = torch.empty((N, S, 4), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
