@@ -1,16 +1,18 @@
 """Smoke test of ucnerf_torch on one CUDA card: builds the port's kernels,
-holds each against its plain PyTorch version, and serves novel views at
-the SCARED operating point through ``python -m ucnerf_torch.serve``'s entry
-point.
+holds each against its plain PyTorch version, serves novel views at the
+SCARED operating point through ``python -m ucnerf_torch.serve``'s entry
+point, and trains at the SCARED train point through ``python -m
+ucnerf_torch.train``'s.
 
     python3 chip_smoke.py
 
-Phases (one line each): device, build, K1 vs plain, serving.  Any failed
-check raises, so the script exits non-zero and prints no result.  Before
-the last line it prints the card's ``nvidia-smi`` name and power limit and
-one JSON line with every kernel of the serving path; the last line is
-``{"ok": true, "device": {...}}``.  Frames and a JSON record go to
-``chiprun_out/chip_smoke/`` beside this file.
+Phases (one line each): device, build, K1 vs plain, serving, train.  Any
+failed check raises, so the script exits non-zero and prints no result.
+Before the last line it prints the card's ``nvidia-smi`` name and power
+limit and one JSON line with every kernel of the serving and train paths;
+the last line is ``{"ok": true, "device": {...}}``.  Frames, the trained
+params, profiles and a JSON record go to ``chiprun_out/chip_smoke/``
+beside this file.
 """
 
 from __future__ import annotations
@@ -35,6 +37,19 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
 SERVE_ARGS = ["--dataset_name", "synthetic", "--img_wh", "320", "256",
               "--view_num", "7"]
 N_REQUESTS = 3
+# the train point of bench.py: 2000 rays (50 patches of 6x6 + 200 uniform)
+# + 1024 sparse-depth rays, 90 samples per ray, cascade depths 48/32/8
+TRAIN_ARGS = [*SERVE_ARGS, "--batch_size", "2000", "--patch_size", "6",
+              "--patch_num", "50", "--n_depth_rays", "1024", "--N_samples",
+              "90", "--num_epochs", "30", "--chunk", "1024"]
+TRAIN_STEPS = 12
+OVERFIT_STEPS = 30
+# the CPU parity tests' small shape (tests/test_torch_train.py)
+SMALL_ARGS = ["--dataset_name", "synthetic", "--view_num", "4", "--N_samples",
+              "9", "--batch_size", "80", "--patch_size", "4", "--patch_num",
+              "4", "--n_depth_rays", "32", "--chunk", "256", "--num_epochs",
+              "4", "--lrate", "5e-4", "--ndepths", "8", "8", "8",
+              "--nerf_dtype", "float32"]
 
 
 def check(ok: bool, msg: str):
@@ -87,10 +102,28 @@ def mlp_work(cfg, n_rays: int, n_samples: int, weight_bytes: int):
     return 2 * macs * P, nbytes, macs
 
 
-def profile_frame(fn, top: int = 12) -> dict:
+# device-time groups by kernel name, first match wins (implicit-GEMM
+# convolutions before plain GEMMs)
+KERNEL_KINDS = (
+    ("K1", ("fused_mlp",)),
+    ("cudnn_conv_bn", ("cudnn", "wgrad", "dgrad", "convolve", "fft2d",
+                       "implicit_gemm", "bn_")),
+    ("gemm", ("gemm",)),
+    ("index_sort", ("index", "Radix", "gather", "scatter")),
+)
+
+
+def kernel_kind(name: str) -> str:
+    for kind, keys in KERNEL_KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "elementwise_other"
+
+
+def profile_frame(fn, top: int = 12, name: str = "profile.txt") -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
-    device's busy share of the wall time, and the table in full under
-    OUT_DIR/profile.txt."""
+    device's busy share of the wall time, device time by kernel kind
+    (``KERNEL_KINDS``), and the table in full under OUT_DIR/``name``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -99,15 +132,22 @@ def profile_frame(fn, top: int = 12) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side annotations (Optimizer.step#Adam.step) span kernels that
+    # are listed themselves, so they are not device time of their own
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     dev_us = {e.key: (e.self_device_time_total, e.count) for e in events}
     busy_ms = sum(us for us, _ in dev_us.values()) / 1e3
     kernels = sorted(dev_us.items(), key=lambda kv: -kv[1][0])
-    (OUT_DIR / "profile.txt").write_text("".join(
+    (OUT_DIR / name).write_text("".join(
         f"{us / 1e3:10.3f} ms {n:6d}x  {k}\n" for k, (us, n) in kernels))
+    by_kind = {}
+    for k, (us, _) in kernels:
+        by_kind[kernel_kind(k)] = by_kind.get(kernel_kind(k), 0.0) + us / 1e3
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=1.0 - busy_ms / wall_ms,
+                by_kind_ms=by_kind,
                 n_device_kernels=sum(e.count for e in events),
                 top_kernels_ms={k[:80]: us / 1e3
                                 for k, (us, _) in kernels[:top]})
@@ -248,15 +288,43 @@ def phase_k1(cfg, dev):
     return res
 
 
+def kernel_vs_plain_frame(cfg, params, batch, img_hw, dev) -> dict:
+    """One frame rendered with K1 and with the plain MLP (at
+    ``cfg.nerf_dtype``) from ONE cascade output, so the diff is the MLP's
+    alone (the cascade's cuDNN convolutions need not be bit-reproducible).
+    The caller resets K1's launch count after."""
+    from ucnerf_torch.kernels.fused_mlp import FusedNeRFMLP
+    from ucnerf_torch.models.factory import create_models
+    from ucnerf_torch.render.renderer import render_image_chunked
+    from ucnerf_torch.train.loop import prepare_view_ctx, view_chunk_fns
+
+    H, W = img_hw
+    nerf, mvs = create_models(cfg, dev, params)
+    got = {}
+    with torch.no_grad():
+        src = mvs.features(batch["images"][1:])
+        ctx = prepare_view_ctx(
+            cfg, mvs, batch, mvs_apply=lambda imgs, a, ai, n, f, p:
+            mvs.from_features(src, a, ai, n, f, p))
+        for name, mlp in (("kernel", FusedNeRFMLP(nerf)), ("plain", nerf)):
+            fns = view_chunk_fns(cfg, mlp, H, W, ctx)
+            got[name] = [t.cpu().numpy() for t in render_image_chunked(
+                *fns, H, W, cfg.chunk, dev)]
+    d_rgb = np.abs(got["kernel"][0] - got["plain"][0])
+    d_depth = np.abs(got["kernel"][1] - got["plain"][1])
+    return dict(rgb_max_abs=float(d_rgb.max()),
+                rgb_mean_abs=float(d_rgb.mean()),
+                depth_max_abs=float(d_depth.max()),
+                depth_mean_rel=float((d_depth / np.abs(
+                    got["plain"][1]).clip(1e-6)).mean()))
+
+
 def phase_serving(cfg, dev):
     """>= 3 requests through ucnerf_torch.serve's batch mode, then one frame
     again with the plain MLP (bf16 and f32) for the kernel-vs-plain diff."""
     from ucnerf_torch import serve
-    from ucnerf_torch.kernels.fused_mlp import FusedNeRFMLP, fused_nerf_mlp
+    from ucnerf_torch.kernels.fused_mlp import fused_nerf_mlp
     from ucnerf_torch.data import build_dataset
-    from ucnerf_torch.models.factory import create_models
-    from ucnerf_torch.render.renderer import render_image_chunked
-    from ucnerf_torch.train.loop import prepare_view_ctx, view_chunk_fns
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     ds = build_dataset(cfg, "val")
@@ -305,32 +373,11 @@ def phase_serving(cfg, dev):
     with torch.no_grad():
         ms_frame = time_ms(lambda: renderer.render(c2w), iters=5, warmup=1)
         profile = profile_frame(lambda: renderer.render(c2w))
-    # both MLPs render from ONE cascade output, so the diff is the MLP's
-    # alone (the cascade's cuDNN convolutions need not be bit-reproducible)
-    diffs = {}
     params = serve.load_params(cfg, dev)
-    batch = renderer.frame_batch(c2w)
-    for dt in ("bfloat16", "float32"):
-        c = cfg.replace(nerf_dtype=dt)
-        nerf, mvs = create_models(c, dev, params)
-        got = {}
-        with torch.no_grad():
-            src = mvs.features(batch["images"][1:])
-            ctx = prepare_view_ctx(
-                c, mvs, batch, mvs_apply=lambda imgs, a, ai, n, f, p:
-                mvs.from_features(src, a, ai, n, f, p))
-            for name, mlp in (("kernel", FusedNeRFMLP(nerf)),
-                              ("plain", nerf)):
-                fns = view_chunk_fns(c, mlp, H, W, ctx)
-                got[name] = [t.cpu().numpy() for t in render_image_chunked(
-                    *fns, H, W, c.chunk, dev)]
-        d_rgb = np.abs(got["kernel"][0] - got["plain"][0])
-        d_depth = np.abs(got["kernel"][1] - got["plain"][1])
-        diffs[dt] = dict(rgb_max_abs=float(d_rgb.max()),
-                         rgb_mean_abs=float(d_rgb.mean()),
-                         depth_max_abs=float(d_depth.max()),
-                         depth_mean_rel=float((d_depth / np.abs(
-                             got["plain"][1]).clip(1e-6)).mean()))
+    diffs = {dt: kernel_vs_plain_frame(cfg.replace(nerf_dtype=dt), params,
+                                       renderer.frame_batch(c2w), (H, W),
+                                       dev)
+             for dt in ("bfloat16", "float32")}
     fused_nerf_mlp.launches = launches   # comparison launches do not count
     check(diffs["float32"]["rgb_max_abs"] <= 1e-3
           and diffs["float32"]["depth_mean_rel"] <= 1e-4,
@@ -348,6 +395,185 @@ def phase_serving(cfg, dev):
     return res
 
 
+@contextlib.contextmanager
+def bench_scene():
+    """The synthetic scene as bench.py builds it for its train point
+    (n_sparse=1024, n_images=16, so every sparse-depth slot holds a ray)
+    in place of the registry's default while the block runs."""
+    from ucnerf_torch import data
+    from ucnerf_torch.data.synthetic import SyntheticDataset
+
+    class BenchScene(SyntheticDataset):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **{**kw, "n_sparse": 1024,
+                                       "n_images": 16})
+
+    data.dataset_dict["synthetic"] = BenchScene
+    try:
+        yield
+    finally:
+        data.dataset_dict["synthetic"] = SyntheticDataset
+
+
+def grad_envelope(got: dict, want: dict) -> dict:
+    """Per tensor: max abs diff over the larger max abs; the median and
+    the worst over all tensors."""
+    rels = {}
+    for name, w in want.items():
+        g = got[name]
+        scale = max(w.abs().max().item(), g.abs().max().item(), 1e-10)
+        rels[name] = (g - w).abs().max().item() / scale
+    worst = max(rels, key=rels.get)
+    return dict(n_tensors=len(rels),
+                median=float(np.median(list(rels.values()))),
+                worst=rels[worst], worst_tensor=worst)
+
+
+def card_vs_cpu_step(dev) -> dict:
+    """One loss and its gradients at the CPU tests' small shape, with the
+    same weights and the same draws, on the card and on the CPU (float32,
+    TF32 off)."""
+    from ucnerf_torch.config import parse_config
+    from ucnerf_torch.data import build_dataset
+    from ucnerf_torch.models.factory import create_models, init_params
+    from ucnerf_torch.ops.rays import TrainDraws, draw_train_randomness
+    from ucnerf_torch.render.serving import to_device_batch
+    from ucnerf_torch.train.loop import scene_loss
+
+    cfg = parse_config(SMALL_ARGS)
+    sample = build_dataset(cfg, "train")[0]
+    H, W = sample["images"].shape[1:3]
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    draws = draw_train_randomness(
+        torch.Generator().manual_seed(1), H=H, W=W,
+        patch_size=cfg.patch_size, patch_num=cfg.patch_num,
+        n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_train_rays,
+        n_samples=cfg.N_samples)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        nerf, mvs = create_models(cfg, d, params)
+        loss, _ = scene_loss(cfg, nerf, mvs, to_device_batch(sample, d),
+                             TrainDraws(*(t.to(d) for t in draws)))
+        loss.backward()
+        grads = {n: p.grad.cpu() for m in (nerf, mvs)
+                 for n, p in m.named_parameters()}
+        out.append((float(loss.detach()), grads))
+    (loss_cpu, g_cpu), (loss_card, g_card) = out
+    return dict(loss_cpu=loss_cpu, loss_card=loss_card,
+                loss_rel=abs(loss_card - loss_cpu) / abs(loss_cpu),
+                grads=grad_envelope(g_card, g_cpu))
+
+
+def phase_train(dev):
+    """TRAIN_STEPS steps through ucnerf_torch.train's entry point at the
+    train point, ending in one validation frame on K1; that frame's K1 vs
+    the plain MLP; an overfit of one sample through make_train_step, its
+    last step profiled; one small-shape step on the card vs the CPU."""
+    from ucnerf_torch.config import parse_config
+    from ucnerf_torch.data import build_dataset
+    from ucnerf_torch.kernels.fused_mlp import fused_nerf_mlp
+    from ucnerf_torch.models.factory import create_models, init_params
+    from ucnerf_torch.ops.rays import draw_train_randomness
+    from ucnerf_torch.render.serving import to_device_batch
+    from ucnerf_torch.train import __main__ as train_cli
+    from ucnerf_torch.train.loop import (TrainState, make_lr_schedule,
+                                         make_optimizer, make_train_step)
+    from ucnerf_torch.utils import checkpoint_io
+
+    cfg = parse_config(TRAIN_ARGS)
+    W, H = cfg.img_wh
+    params_path = OUT_DIR / "train_params.npz"
+    buf = io.StringIO()
+    fused_nerf_mlp.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with bench_scene(), contextlib.redirect_stdout(buf):
+        summary = train_cli.main([*TRAIN_ARGS, "--stop_after_steps",
+                                  str(TRAIN_STEPS), "--save_params",
+                                  str(params_path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_nerf_mlp.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    (OUT_DIR / "train_stdout.txt").write_text(buf.getvalue())
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+             if ln.startswith("{")]
+    steps = [ln for ln in lines if "step" in ln]
+    val = [ln for ln in lines if "val_step" in ln]
+    terms = ("loss", "img_mse", "nerf_depth", "mvs", "smooth", "scaleinv",
+             "psnr")
+    check(len(steps) == TRAIN_STEPS and all(
+        np.isfinite([ln[k] for k in terms]).all() for ln in steps),
+        f"train steps not all finite: {steps}")
+    check(len(val) == 1 and np.isfinite(val[0]["val_psnr"]),
+          f"validation lines {val}")
+    n_tiles = -(-W * H // cfg.chunk)
+    check(launches == n_tiles,
+          f"K1 launches in the validation render {launches}, expected "
+          f"{n_tiles}")
+    ms = [ln["ms"] for ln in steps]
+    steady_ms = float(np.median(ms[2:]))
+
+    # K1 vs the plain bf16 MLP on the trained weights' validation frame
+    with bench_scene():
+        val_sample = build_dataset(cfg, "val")[0]
+    trained = checkpoint_io.state_dict_from_jax(
+        checkpoint_io.load_params_npz(str(params_path)))
+    diff = kernel_vs_plain_frame(cfg, trained,
+                                 to_device_batch(val_sample, dev), (H, W),
+                                 dev)
+    fused_nerf_mlp.launches = launches   # comparison launches do not count
+    check(diff["rgb_mean_abs"] <= 5e-3 and diff["depth_mean_rel"] <= 5e-3,
+          f"bf16 kernel validation frame vs plain frame: {diff}")
+
+    # overfit one fixed sample; the last step under the profiler
+    with bench_scene():
+        batch = to_device_batch(build_dataset(cfg, "train")[0], dev)
+    nerf, mvs = create_models(cfg, dev, init_params(
+        cfg, torch.Generator().manual_seed(cfg.seed), dev))
+    state = TrainState(nerf, mvs, make_optimizer(cfg, nerf, mvs))
+    step = make_train_step(cfg, make_lr_schedule(cfg, cfg.samples_per_scene))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    draw_kw = dict(H=H, W=W, patch_size=cfg.patch_size,
+                   patch_num=cfg.patch_num, n_uniform=cfg.n_uniform_rays,
+                   n_rays=cfg.n_train_rays, n_samples=cfg.N_samples)
+    losses, overfit_ms = [], []
+    for i in range(OVERFIT_STEPS):
+        draws = draw_train_randomness(gen, **draw_kw)
+        run = lambda: losses.append(float(step(state, batch, draws)["loss"]))
+        if i == OVERFIT_STEPS - 1:
+            profile = profile_frame(run, name="train_profile.txt")
+        else:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run()
+            overfit_ms.append((time.perf_counter() - t1) * 1e3)
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    check(np.isfinite(losses).all() and last <= 0.9 * first,
+          f"overfit loss did not drop by 10%: {losses}")
+
+    cc = card_vs_cpu_step(dev)
+    check(abs(cc["loss_rel"]) <= 1e-4 and cc["grads"]["median"] < 5e-3
+          and cc["grads"]["worst"] < 3e-2,
+          f"card vs CPU loss/gradients out of bounds: {cc}")
+
+    res = dict(steps=len(steps), step_ms=ms, steady_ms_per_step=steady_ms,
+               rays_per_step=cfg.n_train_rays,
+               train_rays_per_s=cfg.n_train_rays / steady_ms * 1e3,
+               peak_mem_gib=peak_gib, cli_wall_s=wall, summary=summary,
+               val_ms=val[0]["val_ms"], val_psnr=val[0]["val_psnr"],
+               k1_launches=launches, k1_launches_expected=n_tiles,
+               kernel_vs_plain_val_frame=diff,
+               overfit_losses=losses, overfit_drop=1.0 - last / first,
+               overfit_median_ms=float(np.median(overfit_ms[2:])),
+               step_profile=profile,
+               device_idle_share=profile["device_idle_share"],
+               card_vs_cpu=cc)
+    log("train", **res)
+    return res
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     try:
@@ -361,14 +587,15 @@ def main():
     phase_build()
     k1 = phase_k1(cfg, dev)
     sv = phase_serving(cfg, dev)
-    record = {"k1": k1, "serving": sv, "nvidia_smi": smi}
+    tr = phase_train(dev)
+    record = {"k1": k1, "serving": sv, "train": tr, "nvidia_smi": smi}
     (OUT_DIR / "result.json").write_text(json.dumps(record, indent=1))
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_nerf_mlp", "route": "cuda",
         "source": "ucnerf_torch/csrc/fused_mlp.cu",
         "replaces": "ucnerf_tpu/pallas/mlp_kernel.py:115",
-        "launches": sv["launches"],
+        "launches": sv["launches"] + tr["k1_launches"],
         "max_abs_err": k1["serving"]["bf16_vs_plain_bf16_max_abs_err"],
         "ms": k1["bf16_ms"], "plain_ms": k1["plain_bf16_ms"],
         "bound_ms": k1["bound_bf16_ms"], "bound_by": k1["bound_by_bf16"],

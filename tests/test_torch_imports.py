@@ -34,12 +34,14 @@ def test_no_forbidden_imports(path):
 
 
 def test_serve_imports_with_jax_blocked():
-    """``import ucnerf_torch.serve`` works when importing jax fails."""
+    """The entry points ``ucnerf_torch.serve`` and ``ucnerf_torch.train``
+    import when importing jax fails."""
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'optax', 'ucnerf_tpu', 'cv2', 'PIL',"
             " 'imageio'):\n"
             "    sys.modules[m] = None\n"
             "import ucnerf_torch.serve, ucnerf_torch.kernels.fused_mlp\n"
+            "import ucnerf_torch.train.__main__\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -69,6 +69,27 @@ def test_bf16_pack_on_cpu_runs_plain_version():
     assert fused_nerf_mlp.launches == before
 
 
+def test_wrapper_refuses_autograd():
+    """The kernel has no backward: with grad enabled and an input or a
+    weight that requires grad the wrapper raises on either device, rather
+    than return an output that carries no gradient.  Under no_grad, or
+    with nothing requiring grad, it runs."""
+    mlps, cfg = _mlps(5, "cpu")
+    fused = FusedNeRFMLP(mlps["float32"])
+    pts, dirs, feats = _inputs(3, 4, cfg.feat_dim, "cpu")
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused(pts, dirs, feats)                       # weights require grad
+    with pytest.raises(RuntimeError, match="no backward"):
+        with torch.no_grad():
+            packed = pack_mlp_weights(mlps["float32"])
+        for p in mlps["float32"].parameters():
+            p.requires_grad_(False)
+        fused_nerf_mlp(pts.requires_grad_(), dirs, feats, packed)
+    with torch.no_grad():
+        assert fused(pts, dirs, feats).shape == (3, 4, 4)
+    assert fused(pts.detach(), dirs, feats).shape == (3, 4, 4)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():

@@ -186,12 +186,21 @@ def fused_nerf_mlp(pts, dirs, feats, packed: PackedMLP):
     """pts [N, S, 3], dirs [N, 3], feats [N, S, F] float32 -> raw [N, S, 4].
 
     CPU tensors: the plain version.  CUDA tensors: the kernel, counted in
-    ``fused_nerf_mlp.launches``."""
+    ``fused_nerf_mlp.launches``.  Forward only: with grad enabled and an
+    input or a weight of ``packed.plain`` that requires grad it raises, on
+    either device, since its output would carry no gradient."""
     devices = {t.device for t in (pts, dirs, feats, packed.weights)}
     if len(devices) != 1:
         raise ValueError(f"fused_nerf_mlp: tensors on several devices "
                          f"{sorted(map(str, devices))}")
     dev = devices.pop()
+    if torch.is_grad_enabled() and (
+            any(t.requires_grad for t in (pts, dirs, feats))
+            or any(p.requires_grad for p in packed.plain.parameters())):
+        raise RuntimeError(
+            "fused_nerf_mlp has no backward: call it under torch.no_grad(), "
+            "or run the plain models.nerf.UCNeRFMLP where gradients are "
+            "needed (the train step does)")
     if dev.type == "cpu":
         return packed.plain(pts, dirs, feats)
     if dev.type != "cuda":
@@ -236,7 +245,9 @@ fused_nerf_mlp.launches = 0
 
 class FusedNeRFMLP:
     """The MLP callable of the render path: packs a ``UCNeRFMLP`` once and
-    calls ``fused_nerf_mlp`` per ray tile."""
+    calls ``fused_nerf_mlp`` per ray tile.  The packed copy does not follow
+    later updates of the module's weights: build a new one after training
+    steps."""
 
     def __init__(self, mlp: UCNeRFMLP):
         self.packed = pack_mlp_weights(mlp)

@@ -31,21 +31,10 @@ import torch
 from ucnerf_torch.config import parse_config
 from ucnerf_torch.data import build_dataset
 from ucnerf_torch.kernels.fused_mlp import FusedNeRFMLP
-from ucnerf_torch.models.factory import create_models, init_params
+from ucnerf_torch.models.factory import create_models
 from ucnerf_torch.render.serving import ServingRenderer
-from ucnerf_torch.utils import checkpoint_io
+from ucnerf_torch.utils.checkpoint_io import load_params
 from ucnerf_torch.utils.platform import resolve_device
-
-
-def load_params(cfg, device):
-    """``--ckpt x.npz`` (JAX params) or fresh weights from ``--seed``."""
-    if cfg.ckpt:
-        if not cfg.ckpt.endswith(".npz"):
-            raise ValueError("ucnerf_torch loads '/'-keyed .npz params only "
-                             f"(got --ckpt {cfg.ckpt})")
-        return checkpoint_io.state_dict_from_jax(
-            checkpoint_io.load_params_npz(cfg.ckpt))
-    return init_params(cfg, torch.Generator().manual_seed(cfg.seed), device)
 
 
 def build_renderer(cfg, scene_idx: int = 0, device=None):

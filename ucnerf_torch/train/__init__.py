@@ -1,1 +1,2 @@
-"""The eval render of the train loop (the train step comes later)."""
+"""The train loop: the train step, its losses and the eval render; the
+entry point ``python -m ucnerf_torch.train``."""
