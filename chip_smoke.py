@@ -2,17 +2,20 @@
 holds each against its plain PyTorch version, serves novel views at the
 SCARED operating point through ``python -m ucnerf_torch.serve``'s entry
 point, and trains at the SCARED train point through ``python -m
-ucnerf_torch.train``'s.
+ucnerf_torch.train``'s: a run stopped at a checkpoint, its resume against
+an uninterrupted run, ``--eval`` of the checkpoint over the whole val
+split, and the device scene store against host loading.
 
     python3 chip_smoke.py
 
-Phases (one line each): device, build, K1 vs plain, serving, train.  Any
-failed check raises, so the script exits non-zero and prints no result.
-Before the last line it prints the card's ``nvidia-smi`` name and power
-limit and one JSON line with every kernel of the serving and train paths;
-the last line is ``{"ok": true, "device": {...}}``.  Frames, the trained
-params, profiles and a JSON record go to ``chiprun_out/chip_smoke/``
-beside this file.
+Phases (one line each): device, build, K1 vs plain, serving, resume,
+store_vs_host, train.  Any failed check raises, so the script exits
+non-zero and prints no result.  Before the last line it prints the card's
+``nvidia-smi`` name and power limit and one JSON line with every kernel of
+the serving and train paths; the last line is ``{"ok": true, "device":
+{...}}``.  Frames, the trainer runs' stdout and directories (metrics,
+test results; their checkpoints are deleted once checked), profiles and a
+JSON record go to ``chiprun_out/chip_smoke/`` beside this file.
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -42,8 +47,10 @@ N_REQUESTS = 3
 TRAIN_ARGS = [*SERVE_ARGS, "--batch_size", "2000", "--patch_size", "6",
               "--patch_num", "50", "--n_depth_rays", "1024", "--N_samples",
               "90", "--num_epochs", "30", "--chunk", "1024"]
-TRAIN_STEPS = 12
+TRAIN_STEPS = 12           # the run that stops at a checkpoint
+RESUME_STEPS = 16          # its resume, and the uninterrupted run
 OVERFIT_STEPS = 30
+DET_STEPS = 8              # the overfit step again on deterministic kernels
 # the CPU parity tests' small shape (tests/test_torch_train.py)
 SMALL_ARGS = ["--dataset_name", "synthetic", "--view_num", "4", "--N_samples",
               "9", "--batch_size", "80", "--patch_size", "4", "--patch_num",
@@ -464,68 +471,211 @@ def card_vs_cpu_step(dev) -> dict:
                 grads=grad_envelope(g_card, g_cpu))
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic kernels for the block (sort-based scatter-adds,
+    deterministic cuDNN algorithms; cuBLAS needs CUBLAS_WORKSPACE_CONFIG,
+    which ``main`` sets).  With the card's default kernels two identical
+    runs differ after one step: the atomic scatter-adds of the backward
+    change round-off, and Adam's first updates, about lr * sign(gradient),
+    turn that into differences of a whole learning rate."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def run_trainer(name: str, *argv) -> tuple:
+    """One ``ucnerf_torch.train`` run on the bench scene under
+    OUT_DIR/``name``: (summary, JSON lines, wall seconds); its output is
+    kept in OUT_DIR/``name``_stdout.txt."""
+    from ucnerf_torch.train import __main__ as train_cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with bench_scene(), contextlib.redirect_stdout(buf):
+        summary = train_cli.main([*TRAIN_ARGS, "--basedir", str(OUT_DIR),
+                                  "--expname", name, *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (OUT_DIR / f"{name}_stdout.txt").write_text(buf.getvalue())
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+             if ln.startswith("{")]
+    return summary, lines, wall
+
+
+def step_lines(lines) -> list:
+    return [ln for ln in lines if "step" in ln]
+
+
+def store_vs_host(cfg, dev) -> dict:
+    """One train sample store-fed and host-fed on the card: the batches
+    bit for bit (less the eval-only GT depth), and the forward loss of each
+    with the same weights and draws."""
+    from ucnerf_torch.data import build_dataset
+    from ucnerf_torch.data.device_store import (build_store, gather_batch,
+                                                sample_indices, store_nbytes)
+    from ucnerf_torch.models.factory import create_models, init_params
+    from ucnerf_torch.ops.rays import draw_train_randomness
+    from ucnerf_torch.render.serving import to_device_batch
+    from ucnerf_torch.train.loop import scene_loss
+
+    with bench_scene():
+        ds = build_dataset(cfg, "train")
+    ds.set_epoch(1)
+    store = build_store(ds, dev)
+    host = to_device_batch(ds[5], dev)
+    fed = gather_batch(store, to_device_batch(sample_indices(ds, 5), dev))
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            elif k != "depths_h":
+                yield prefix + k, v
+    h, s = dict(flat(host)), dict(flat(fed))
+    unequal = sorted(k for k in h if k not in s or h[k].dtype != s[k].dtype
+                     or not torch.equal(h[k], s[k]))
+    W, H = cfg.img_wh
+    nerf, mvs = create_models(cfg, dev, init_params(
+        cfg, torch.Generator().manual_seed(cfg.seed), dev))
+    losses = []
+    for batch in (host, fed):
+        draws = draw_train_randomness(
+            torch.Generator(device=dev).manual_seed(3), H=H, W=W,
+            patch_size=cfg.patch_size, patch_num=cfg.patch_num,
+            n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_train_rays,
+            n_samples=cfg.N_samples)
+        with torch.no_grad():
+            losses.append(float(scene_loss(cfg, nerf, mvs, batch, draws)[0]))
+    return dict(store_mb=store_nbytes(store) / 1e6, fields=len(h),
+                unequal_fields=unequal, loss_host=losses[0],
+                loss_store=losses[1],
+                loss_rel=abs(losses[1] - losses[0]) / abs(losses[0]))
+
+
 def phase_train(dev):
-    """TRAIN_STEPS steps through ucnerf_torch.train's entry point at the
-    train point, ending in one validation frame on K1; that frame's K1 vs
-    the plain MLP; an overfit of one sample through make_train_step, its
-    last step profiled; one small-shape step on the card vs the CPU."""
+    """ucnerf_torch.train's entry point at the train point, on the bench
+    scene: (a) TRAIN_STEPS store-fed steps that stop at a checkpoint and do
+    not validate; (b) a resume from it to RESUME_STEPS against as many
+    uninterrupted host-fed steps; (c) ``--eval`` of the checkpoint over the
+    whole val split on K1, then K1 vs the plain MLP on its first view; (d)
+    one sample store-fed against host-fed.  (a), (b) and (d) run on
+    deterministic kernels, so that their comparisons see the code and not
+    the card's atomics.  Then an overfit of one sample through
+    make_train_step (default kernels), its last step profiled, and one
+    small-shape step on the card vs the CPU."""
     from ucnerf_torch.config import parse_config
     from ucnerf_torch.data import build_dataset
     from ucnerf_torch.kernels.fused_mlp import fused_nerf_mlp
     from ucnerf_torch.models.factory import create_models, init_params
     from ucnerf_torch.ops.rays import draw_train_randomness
     from ucnerf_torch.render.serving import to_device_batch
-    from ucnerf_torch.train import __main__ as train_cli
     from ucnerf_torch.train.loop import (TrainState, make_lr_schedule,
                                          make_optimizer, make_train_step)
     from ucnerf_torch.utils import checkpoint_io
 
     cfg = parse_config(TRAIN_ARGS)
     W, H = cfg.img_wh
-    params_path = OUT_DIR / "train_params.npz"
-    buf = io.StringIO()
-    fused_nerf_mlp.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with bench_scene(), contextlib.redirect_stdout(buf):
-        summary = train_cli.main([*TRAIN_ARGS, "--stop_after_steps",
-                                  str(TRAIN_STEPS), "--save_params",
-                                  str(params_path)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = fused_nerf_mlp.launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    (OUT_DIR / "train_stdout.txt").write_text(buf.getvalue())
-    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
-             if ln.startswith("{")]
-    steps = [ln for ln in lines if "step" in ln]
-    val = [ln for ln in lines if "val_step" in ln]
+    n_tiles = -(-W * H // cfg.chunk)
     terms = ("loss", "img_mse", "nerf_depth", "mvs", "smooth", "scaleinv",
              "psnr")
+    runs = ("a_train", "b_resumed", "b_whole", "c_eval")
+    for name in runs:
+        shutil.rmtree(OUT_DIR / name, ignore_errors=True)
+    fused_nerf_mlp.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) train to a checkpoint: stopped runs save and do not validate
+    with deterministic():
+        summary, lines, wall = run_trainer("a_train", "--stop_after_steps",
+                                           str(TRAIN_STEPS))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = step_lines(lines)
+    ckpt = OUT_DIR / "a_train" / "ckpts" / f"step_{TRAIN_STEPS:08d}"
+    saves = [ln for ln in lines if "checkpoint" in ln]
+    store = [ln for ln in lines if "store_mb" in ln]
     check(len(steps) == TRAIN_STEPS and all(
         np.isfinite([ln[k] for k in terms]).all() for ln in steps),
         f"train steps not all finite: {steps}")
-    check(len(val) == 1 and np.isfinite(val[0]["val_psnr"]),
-          f"validation lines {val}")
-    n_tiles = -(-W * H // cfg.chunk)
-    check(launches == n_tiles,
-          f"K1 launches in the validation render {launches}, expected "
-          f"{n_tiles}")
+    check((ckpt / "params.npz").is_file() and (ckpt / "train_state.pt")
+          .is_file() and [s["checkpoint"] for s in saves] == [str(ckpt)],
+          f"no checkpoint at step {TRAIN_STEPS}: {saves}")
+    check(summary["stopped"] and summary["val"] is None
+          and not any("val_step" in ln for ln in lines),
+          f"a stopped run validated: {summary}")
+    check(len(store) == 1, f"the default run is not store-fed: {store}")
     ms = [ln["ms"] for ln in steps]
     steady_ms = float(np.median(ms[2:]))
 
-    # K1 vs the plain bf16 MLP on the trained weights' validation frame
+    # (b) resume against an uninterrupted (host-fed) run
+    host_cfg = OUT_DIR / "host_fed.json"
+    host_cfg.write_text(json.dumps({"device_dataset": False}))
+    with deterministic():
+        _, r_lines, _ = run_trainer("b_resumed", "--ckpt", str(ckpt),
+                                    "--stop_after_steps", str(RESUME_STEPS))
+        _, u_lines, _ = run_trainer("b_whole", "--config", str(host_cfg),
+                                    "--stop_after_steps", str(RESUME_STEPS))
+    resumed = step_lines(r_lines)
+    whole = step_lines(u_lines)[TRAIN_STEPS:]
+    loss_rel = [abs(r["loss"] - u["loss"]) / abs(u["loss"])
+                for r, u in zip(resumed, whole)]
+    resume = dict(
+        resumed_steps=[ln["step"] for ln in resumed],
+        resumed_lr=[ln["lr"] for ln in resumed],
+        whole_lr=[ln["lr"] for ln in whole],
+        resumed_loss=[ln["loss"] for ln in resumed],
+        whole_loss=[ln["loss"] for ln in whole], loss_rel=loss_rel,
+        whole_steady_ms=float(np.median(
+            [ln["ms"] for ln in step_lines(u_lines)[2:]])),
+        resumed_from=[ln for ln in r_lines if "resumed" in ln])
+    log("resume", **resume)
+    check(resume["resumed_steps"] == list(range(TRAIN_STEPS + 1,
+                                                RESUME_STEPS + 1))
+          and resume["resumed_lr"] == resume["whole_lr"]
+          and len(loss_rel) == RESUME_STEPS - TRAIN_STEPS
+          and max(loss_rel) <= 1e-3,
+          f"resume vs uninterrupted: {resume}")
+    check(fused_nerf_mlp.launches == 0,
+          f"stopped runs launched K1 {fused_nerf_mlp.launches} times")
+
+    # (c) --eval of the checkpoint over the whole val split on K1
     with bench_scene():
-        val_sample = build_dataset(cfg, "val")[0]
-    trained = checkpoint_io.state_dict_from_jax(
-        checkpoint_io.load_params_npz(str(params_path)))
+        val_ds = build_dataset(cfg, "val")
+    ev_summary, ev_lines, ev_wall = run_trainer("c_eval", "--eval", "--ckpt",
+                                                str(ckpt))
+    launches = fused_nerf_mlp.launches
+    [val] = [ln for ln in ev_lines if "val_step" in ln]
+    metrics = ev_summary["val"]
+    finite = [k for k in metrics if k != "lpips"]
+    check(val["views"] == len(val_ds) and launches == len(val_ds) * n_tiles,
+          f"K1 launches {launches} over {val['views']} views, expected "
+          f"{len(val_ds)} x {n_tiles}")
+    check(len(finite) == 9 and np.isfinite([metrics[k] for k in finite]).all()
+          and np.isnan(metrics["lpips"]),
+          f"validation metrics: {metrics}")
+    check((OUT_DIR / "c_eval" / "test_results" / "rgb_evaluation.txt")
+          .is_file(), "no rgb_evaluation.txt")
+
+    # K1 vs the plain bf16 MLP on the checkpoint's first val view
+    trained = checkpoint_io.checkpoint_params(str(ckpt))
     diff = kernel_vs_plain_frame(cfg, trained,
-                                 to_device_batch(val_sample, dev), (H, W),
+                                 to_device_batch(val_ds[0], dev), (H, W),
                                  dev)
     fused_nerf_mlp.launches = launches   # comparison launches do not count
     check(diff["rgb_mean_abs"] <= 5e-3 and diff["depth_mean_rel"] <= 5e-3,
           f"bf16 kernel validation frame vs plain frame: {diff}")
+
+    # (d) one sample store-fed against host-fed
+    with deterministic():
+        svh = store_vs_host(cfg, dev)
+    log("store_vs_host", **svh)
+    check(not svh["unequal_fields"] and svh["loss_rel"] <= 1e-6,
+          f"store-fed vs host-fed: {svh}")
 
     # overfit one fixed sample; the last step under the profiler
     with bench_scene():
@@ -552,21 +702,43 @@ def phase_train(dev):
     first, last = np.mean(losses[:3]), np.mean(losses[-3:])
     check(np.isfinite(losses).all() and last <= 0.9 * first,
           f"overfit loss did not drop by 10%: {losses}")
+    # the same step on deterministic kernels: what exact resume costs
+    det_ms = []
+    with deterministic():
+        for _ in range(DET_STEPS):
+            draws = draw_train_randomness(gen, **draw_kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            check(np.isfinite(float(step(state, batch, draws)["loss"])),
+                  "deterministic step not finite")
+            det_ms.append((time.perf_counter() - t1) * 1e3)
+
+    for name in runs:      # the checkpoints have served; keep the output small
+        shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
 
     cc = card_vs_cpu_step(dev)
     check(abs(cc["loss_rel"]) <= 1e-4 and cc["grads"]["median"] < 5e-3
           and cc["grads"]["worst"] < 3e-2,
           f"card vs CPU loss/gradients out of bounds: {cc}")
 
-    res = dict(steps=len(steps), step_ms=ms, steady_ms_per_step=steady_ms,
+    overfit_ms_median = float(np.median(overfit_ms[2:]))
+    res = dict(steps=len(steps), step_ms=ms,
+               # the CLI runs, on deterministic kernels
+               det_steady_ms_per_step=steady_ms,
+               det_host_fed_steady_ms_per_step=resume["whole_steady_ms"],
                rays_per_step=cfg.n_train_rays,
-               train_rays_per_s=cfg.n_train_rays / steady_ms * 1e3,
+               # the step on the card's default kernels (the overfit loop)
+               steady_ms_per_step=overfit_ms_median,
+               det_kernels_ms_per_step=float(np.median(det_ms[2:])),
+               train_rays_per_s=cfg.n_train_rays / overfit_ms_median * 1e3,
                peak_mem_gib=peak_gib, cli_wall_s=wall, summary=summary,
-               val_ms=val[0]["val_ms"], val_psnr=val[0]["val_psnr"],
-               k1_launches=launches, k1_launches_expected=n_tiles,
-               kernel_vs_plain_val_frame=diff,
+               ckpt_save_s=saves[0]["seconds"], store_mb=store[0]["store_mb"],
+               resume=resume, eval_views=val["views"],
+               eval_ms_per_view=val["ms_per_view"], eval_wall_s=ev_wall,
+               eval_metrics=metrics, k1_launches=launches,
+               k1_launches_expected=len(val_ds) * n_tiles,
+               kernel_vs_plain_val_frame=diff, store_vs_host=svh,
                overfit_losses=losses, overfit_drop=1.0 - last / first,
-               overfit_median_ms=float(np.median(overfit_ms[2:])),
                step_profile=profile,
                device_idle_share=profile["device_idle_share"],
                card_vs_cpu=cc)
@@ -581,6 +753,9 @@ def main():
     except ImportError as e:
         raise SystemExit(f"chip_smoke: the ucnerf_torch package is missing "
                          f"beside this script ({e})")
+    # cuBLAS is deterministic only with a fixed workspace; set before the
+    # first cuBLAS call (phase train's ``deterministic`` blocks need it)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     smi = phase_device()
     dev = torch.device("cuda", 0)
     cfg = parse_config(SERVE_ARGS)

@@ -34,14 +34,22 @@ def test_no_forbidden_imports(path):
 
 
 def test_serve_imports_with_jax_blocked():
-    """The entry points ``ucnerf_torch.serve`` and ``ucnerf_torch.train``
-    import when importing jax fails."""
+    """The entry points ``ucnerf_torch.serve`` and ``ucnerf_torch.train``,
+    and the modules the trainer loads (validation, metrics, LPIPS,
+    checkpoints, the device store, writer, prefetcher, profiling), import
+    when importing jax fails."""
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'optax', 'ucnerf_tpu', 'cv2', 'PIL',"
             " 'imageio'):\n"
             "    sys.modules[m] = None\n"
             "import ucnerf_torch.serve, ucnerf_torch.kernels.fused_mlp\n"
             "import ucnerf_torch.train.__main__\n"
+            "import ucnerf_torch.train.validation, ucnerf_torch.eval\n"
+            "import ucnerf_torch.eval.lpips, ucnerf_torch.eval.metrics\n"
+            "import ucnerf_torch.utils.checkpoint_io\n"
+            "import ucnerf_torch.data.device_store\n"
+            "import ucnerf_torch.utils.writer, ucnerf_torch.utils.prefetch\n"
+            "import ucnerf_torch.utils.profiling\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

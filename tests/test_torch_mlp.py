@@ -22,7 +22,8 @@ from ucnerf_torch.kernels.fused_mlp import (BF16_STEPS, LAYER_NAMES,
                                             shuffle_b_fragments as t_shuffle,
                                             unshuffle_b_fragments)
 from ucnerf_torch.models.factory import create_models, init_params
-from ucnerf_torch.utils.checkpoint_io import nerf_state_dict_from_jax
+from ucnerf_torch.utils.checkpoint_io import (jax_params_from_state_dict,
+                                              nerf_state_dict_from_jax)
 
 torch.set_num_threads(1)
 
@@ -40,13 +41,15 @@ def _inputs(n, feat_dim, seed):
 
 @pytest.fixture(scope="module")
 def case():
-    """JAX params and the JAX MLP's outputs (f32 and bf16), computed once."""
+    """The port's seeded MLP weights carried into the JAX params tree and
+    the JAX MLP's outputs (f32 and bf16), computed once."""
     cfg = JConfig(view_num=V, N_samples=S)
     j_bf16, _ = j_create_models(cfg)
     j_f32, _ = j_create_models(cfg.replace(nerf_dtype="float32"))
-    z = jnp.zeros((2, S, 3))
-    params = j_f32.init(jax.random.PRNGKey(0), z, jnp.zeros((2, 3)),
-                        jnp.zeros((2, S, cfg.feat_dim)))["params"]
+    params = jax.tree.map(jnp.asarray, jax_params_from_state_dict({
+        "nerf": init_params(Config(view_num=V, N_samples=S),
+                            torch.Generator().manual_seed(0), "cpu")["nerf"]}
+    )["nerf"])
     x33 = _inputs(33, cfg.feat_dim, 3)   # 33 * 7 points: not a tile multiple
     x16 = _inputs(16, cfg.feat_dim, 4)
     out = dict(

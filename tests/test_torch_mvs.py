@@ -13,8 +13,9 @@ from ucnerf_tpu.models.factory import create_models as j_create_models
 from ucnerf_tpu.utils.checkpoint_io import export_casmvsnet_state_dict
 
 from ucnerf_torch.config import Config
-from ucnerf_torch.models.factory import create_models
-from ucnerf_torch.utils.checkpoint_io import mvs_state_dict_from_jax
+from ucnerf_torch.models.factory import create_models, init_params
+from ucnerf_torch.utils.checkpoint_io import (jax_params_from_state_dict,
+                                              mvs_state_dict_from_jax)
 
 torch.set_num_threads(1)
 
@@ -45,7 +46,8 @@ def _affines():
 
 @pytest.fixture(scope="module")
 def case():
-    """JAX params, inputs and the JAX cascade's outputs, computed once."""
+    """The port's seeded cascade weights carried into the JAX params tree,
+    the inputs and the JAX cascade's outputs, computed once."""
     cfg = JConfig(view_num=V, mvs_dtype="float32")
     _, mvs = j_create_models(cfg)
     rng = np.random.default_rng(0)
@@ -54,9 +56,11 @@ def case():
     near, far = np.float32(0.8), np.float32(2.5)
     args = (jnp.asarray(imgs), jnp.asarray(affine), jnp.asarray(affine_inv),
             jnp.asarray(near), jnp.asarray(far))
-    params = jax.jit(mvs.init)(jax.random.PRNGKey(0), *args)["params"]
+    params = jax_params_from_state_dict({"mvs": init_params(
+        Config(view_num=V), torch.Generator().manual_seed(0), "cpu")["mvs"]}
+    )["mvs"]
     out = jax.jit(lambda p, *a: mvs.apply({"params": p}, *a))(params, *args)
-    return dict(params=jax.tree.map(np.asarray, params),
+    return dict(params=params,
                 out=jax.tree.map(np.asarray, out),
                 inputs=(imgs, affine, affine_inv, near, far))
 

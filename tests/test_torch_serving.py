@@ -9,20 +9,21 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from ucnerf_tpu.config import parse_config as j_parse_config
 from ucnerf_tpu.data import build_dataset as j_build_dataset
-from ucnerf_tpu.models.factory import (create_models as j_create_models,
-                                       init_params as j_init_params)
+from ucnerf_tpu.models.factory import create_models as j_create_models
 from ucnerf_tpu.render.serving import ServingRenderer as JServingRenderer
 
 from ucnerf_torch import serve
 from ucnerf_torch.config import parse_config
 from ucnerf_torch.data import build_dataset
 from ucnerf_torch.kernels.fused_mlp import FusedNeRFMLP
-from ucnerf_torch.models.factory import create_models
+from ucnerf_torch.models.factory import create_models, init_params
 from ucnerf_torch.render.serving import ServingRenderer
-from ucnerf_torch.utils.checkpoint_io import state_dict_from_jax
+from ucnerf_torch.utils.checkpoint_io import (jax_params_from_state_dict,
+                                              state_dict_from_jax)
 
 torch.set_num_threads(1)
 
@@ -41,19 +42,19 @@ def _poses(sample):
 
 @pytest.fixture(scope="module")
 def case():
-    """JAX params and the JAX ServingRenderer's frames, computed once."""
+    """The port's seeded weights carried into the JAX params tree, and the
+    JAX ServingRenderer's frames from them, computed once."""
     cfg = j_parse_config(ARGS)
     ds = j_build_dataset(cfg, "val")
     W, H = ds.img_wh
     nerf, mvs = j_create_models(cfg)
-    params = jax.jit(lambda k: j_init_params(cfg, k, (H, W)))(
-        jax.random.PRNGKey(0))
+    params = jax_params_from_state_dict(init_params(
+        parse_config(ARGS), torch.Generator().manual_seed(0), "cpu"))
     sample = ds[0]
-    r = JServingRenderer(cfg, nerf, mvs, params, sample, (H, W),
-                         ds.scene[ds.metas[0][0]]["intrinsic"])
+    r = JServingRenderer(cfg, nerf, mvs, jax.tree.map(jnp.asarray, params),
+                         sample, (H, W), ds.scene[ds.metas[0][0]]["intrinsic"])
     frames = [r.render_np(c2w) for c2w in _poses(sample)]
-    return dict(params=jax.tree.map(np.asarray, params), sample=sample,
-                frames=frames)
+    return dict(params=params, sample=sample, frames=frames)
 
 
 def test_serving_matches_jax(case):

@@ -223,13 +223,15 @@ def test_finetune_step_freezes_cascade(case):
 
 def test_cli_trains_saves_and_serves(case, tmp_path, capsys):
     """``python -m ucnerf_torch.train --device cpu --stop_after_steps 2
-    --save_params p.npz`` prints its step, validation and summary lines;
-    p.npz holds the JAX package's params layout, round-trips through the
-    weight bridge, and ``ucnerf_torch.serve --ckpt p.npz`` renders from
-    it."""
+    --save_params p.npz`` prints its step, checkpoint and summary lines
+    and, stopped as a killed run would be, checkpoints and does not
+    validate; p.npz holds the JAX package's params layout (as does the
+    checkpoint's params.npz), round-trips through the weight bridge, and
+    ``ucnerf_torch.serve --ckpt p.npz`` renders from it."""
     p = str(tmp_path / "p.npz")
     summary = train_cli.main([*ARGS, "--device", "cpu", "--stop_after_steps",
-                              "2", "--save_params", p])
+                              "2", "--save_params", p, "--basedir",
+                              str(tmp_path)])
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("{")]
     steps = [ln for ln in lines if "step" in ln]
@@ -239,11 +241,16 @@ def test_cli_trains_saves_and_serves(case, tmp_path, capsys):
                                             "scaleinv", "nerf_depth", "lr",
                                             "ms")]).all()
         assert ln["lr"] == pytest.approx(5e-4)
-    assert any("val_psnr" in ln for ln in lines)
+    assert not any("val_step" in ln for ln in lines)
+    ckpt = str(tmp_path / "scared" / "ckpts" / "step_00000002")
+    assert [ln["checkpoint"] for ln in lines if "checkpoint" in ln] == [ckpt]
     assert lines[-1] == summary and summary["steps"] == 2
-    assert np.isfinite(summary["val_psnr"])
+    assert summary["stopped"] and summary["val"] is None
+    assert summary["ckpt"] == ckpt
 
     tree = load_params_npz(p)
+    jax.tree.map(np.testing.assert_array_equal,
+                 load_params_npz(ckpt + "/params.npz"), tree)
     sd = state_dict_from_jax(tree)
     back = jax_params_from_state_dict(sd)
     jax.tree.map(np.testing.assert_array_equal, back, tree)

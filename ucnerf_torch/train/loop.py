@@ -29,12 +29,20 @@ from ucnerf_torch.render.renderer import (make_feat_ctx, render_image_chunked,
 from ucnerf_torch.train.losses import cas_mvsnet_loss, total_loss
 
 
+def objective(cfg: Config) -> str:
+    """The run's training objective: ``mvs_only`` | ``full`` | ``finetune``."""
+    if cfg.mvs_only:
+        return "mvs_only"
+    return "full" if cfg.finetune is None else "finetune"
+
+
 @dataclasses.dataclass
 class TrainState:
     nerf: torch.nn.Module
     mvs: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    objective: str = "full"
 
 
 def cosine_epoch_schedule(lrate: float, num_epochs: int,
@@ -103,7 +111,7 @@ def _stage_planes(mvs_out, pad: int):
     return planes
 
 
-def _run_mvs(cfg: Config, mvs, batch):
+def run_mvs(cfg: Config, mvs, batch):
     """The cascade forward of a batch (``mvs`` the module or a stand-in
     with its signature)."""
     imgs_norm = batch["images"]
@@ -121,7 +129,7 @@ def scene_inputs(cfg: Config, mvs, batch, draws: TrainDraws,
     frozen = torch.no_grad() if cfg.finetune is not None \
         else contextlib.nullcontext()
     with frozen:
-        mvs_out = _run_mvs(cfg, mvs, batch)
+        mvs_out = run_mvs(cfg, mvs, batch)
     confidence = mvs_out["stage3"]["photometric_confidence"]
     rays = build_train_rays(
         draws, image_tgt=imgs[0], confidence=confidence.detach(),
@@ -171,7 +179,7 @@ def mvs_only_scene_loss(cfg: Config, mvs, batch):
     """``--mvs_only``: ``cas_mvsnet_loss`` alone, no rays and no render;
     pretrains the cascade from scratch.  ``depth_abs`` is the mean |depth
     error| at the supervised pixels, a diagnostic."""
-    mvs_out = _run_mvs(cfg, mvs, batch)
+    mvs_out = run_mvs(cfg, mvs, batch)
     loss = cas_mvsnet_loss(mvs_out, batch["sparse_depth_ms"],
                            batch["weight_ms"])
     est = mvs_out["stage3"]["depth"]
@@ -224,7 +232,7 @@ def prepare_view_ctx(cfg: Config, mvs, batch, mvs_apply=None) -> Dict:
         raise NotImplementedError("--use_color_volume is not ported yet")
     imgs = unnormalize(batch["images"])
     near, far = batch["near_fars"][0, 0], batch["near_fars"][0, 1]
-    mvs_out = _run_mvs(cfg, mvs if mvs_apply is None else mvs_apply, batch)
+    mvs_out = run_mvs(cfg, mvs if mvs_apply is None else mvs_apply, batch)
     confidence = mvs_out["stage3"]["photometric_confidence"]
     feat_ctx = make_feat_ctx(mvs_out, confidence, imgs[1:],
                              batch["w2cs"][1:], batch["intrinsics"][1:])

@@ -1,8 +1,12 @@
-"""Weights between the JAX package's params trees and the port's modules.
+"""Weights between the JAX package's params trees and the port's modules,
+and the port's checkpoints.
 
 ``load_params`` gives the entry points their weights (``--seed``, then
-``--ckpt``).  ``load_params_npz`` / ``save_params_npz`` read and write the
-JAX package's portable ``'/'``-keyed ``.npz`` params.
+``--ckpt`` of any form).  ``save_checkpoint`` / ``load_checkpoint`` write
+and restore the trainer's state (weights, Adam's moments, step) for exact
+resume; they stand in for the JAX package's orbax checkpoints.
+``load_params_npz`` / ``save_params_npz`` read and write the JAX package's
+portable ``'/'``-keyed ``.npz`` params.
 ``state_dict_from_jax`` turns a JAX params tree (nested dict of arrays)
 into the port's state dicts, whose names follow the reference
 checkpoints; ``jax_params_from_state_dict`` is its inverse.  Both are
@@ -13,6 +17,10 @@ uses batch statistics.
 
 from __future__ import annotations
 
+import os
+import re
+import shutil
+import tempfile
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -184,17 +192,143 @@ def jax_params_from_state_dict(state_dicts) -> Dict:
     return tree
 
 
+# ------------------------------------------------------ native checkpoints
+PARAMS_FILE = "params.npz"
+STATE_FILE = "train_state.pt"
+
+
+def params_tree(nerf, mvs) -> Dict:
+    """The modules' weights as the JAX params tree of numpy arrays."""
+    return jax_params_from_state_dict({"nerf": nerf.state_dict(),
+                                       "mvs": mvs.state_dict()})
+
+
+def checkpoint_params(path: str) -> Dict[str, Dict[str, np.ndarray]]:
+    """A native checkpoint's weights as {'nerf', 'mvs'} state dicts."""
+    return state_dict_from_jax(load_params_npz(os.path.join(path,
+                                                            PARAMS_FILE)))
+
+
+def _step_dirs(ckpt_dir: str):
+    return sorted(d for d in os.listdir(ckpt_dir)
+                  if re.fullmatch(r"step_\d{8}", d)
+                  and os.path.isdir(os.path.join(ckpt_dir, d)))
+
+
+def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 0) -> str:
+    """Write ``<ckpt_dir>/step_{step:08d}/``: ``params.npz`` (the JAX
+    package's '/'-keyed params layout, which ``--ckpt x.npz`` of both
+    packages reads) and ``train_state.pt`` (step, the optimizer's state
+    dict with Adam's moments, and the objective).
+
+    The directory is written under a temporary name and renamed into
+    place, so a save killed midway leaves no half checkpoint for a resume
+    to find; re-saving a step replaces it.  ``keep > 0`` then prunes the
+    oldest ``step_*`` directories so that at most ``keep`` remain (0 keeps
+    all, as the reference does with its 5000-step dumps)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    name = f"step_{step:08d}"
+    path = os.path.join(ckpt_dir, name)
+    tmp = tempfile.mkdtemp(prefix=f".{name}.", dir=ckpt_dir)
+    try:
+        save_params_npz(params_tree(state.nerf, state.mvs),
+                        os.path.join(tmp, PARAMS_FILE))
+        torch.save({"step": int(step),
+                    "optimizer": state.optimizer.state_dict(),
+                    "objective": state.objective},
+                   os.path.join(tmp, STATE_FILE))
+        if os.path.isdir(path):
+            old = tempfile.mkdtemp(prefix=f".{name}.old.", dir=ckpt_dir)
+            os.replace(path, os.path.join(old, name))
+            os.replace(tmp, path)
+            shutil.rmtree(old)
+        else:
+            os.replace(tmp, path)
+    finally:
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+    if keep > 0:
+        old = [d for d in _step_dirs(ckpt_dir) if d != name]
+        for d in old[:max(0, len(old) - (keep - 1))]:
+            shutil.rmtree(os.path.join(ckpt_dir, d))
+    return path
+
+
+def load_checkpoint(path: str, state):
+    """Restore a native checkpoint into ``state`` in place: the weights,
+    the optimizer's state (Adam's moments) and the step.  A checkpoint of
+    another objective (``--mvs_only`` | full | ``--finetune``) raises: a
+    phase hand-off takes ``--ckpt_params_only``."""
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    if saved["objective"] != state.objective:
+        raise ValueError(
+            f"{path} was saved by a {saved['objective']!r} run and this run "
+            f"trains {state.objective!r}: a full resume continues the same "
+            f"objective; to seed this phase from its weights, pass "
+            f"--ckpt_params_only")
+    sd = checkpoint_params(path)
+    for module, key in ((state.nerf, "nerf"), (state.mvs, "mvs")):
+        module.load_state_dict({k: torch.from_numpy(v)
+                                for k, v in sd[key].items()}, strict=True)
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+    return state
+
+
+# ------------------------------------------------- reference checkpoints
+# layers of the reference MLP that its forward never uses
+_REFERENCE_UNUSED = ("nerf.feature_linear_1", "nerf.confi_linear",
+                     "nerf.pts_bias_confidence_1")
+_BN_STATS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def _reference_state_dict(sd) -> Dict[str, torch.Tensor]:
+    """A reference state dict less its unused layers and BN running
+    statistics: the port's module names are the reference's."""
+    return {k: v for k, v in sd.items()
+            if k.rsplit(".", 1)[0] not in _REFERENCE_UNUSED
+            and not k.endswith(_BN_STATS)}
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, Dict]:
+    """A reference torch checkpoint -> {'nerf': state dict, 'mvs': state
+    dict} for the subtrees it holds (``network/models.py:240-266``):
+    ``ucnerf.tar`` holds ``network_fn_state_dict`` and
+    ``network_mvs_state_dict``; the published ``casmvsnet.ckpt`` holds
+    ``{'model': ...}`` and seeds the cascade only."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if "network_fn_state_dict" in obj:
+        return {"nerf": _reference_state_dict(obj["network_fn_state_dict"]),
+                "mvs": _reference_state_dict(obj["network_mvs_state_dict"])}
+    if "model" in obj:
+        return {"mvs": _reference_state_dict(obj["model"])}
+    raise ValueError(
+        f"{path}: unrecognized checkpoint format (expected ucnerf.tar "
+        "keys network_fn_state_dict/network_mvs_state_dict, or "
+        "casmvsnet.ckpt key 'model'); found " + ", ".join(sorted(obj)[:8]))
+
+
 def load_params(cfg, device) -> Dict[str, Dict]:
-    """Weights drawn from ``--seed`` (the JAX package's init laws), with
-    ``--ckpt x.npz`` (JAX params layout) replacing the subtrees it holds.
-    Other checkpoint formats raise ``NotImplementedError``."""
+    """The weights of ``--seed`` and ``--ckpt`` (``load_eval_params`` of
+    the JAX package): drawn from ``--seed`` with the JAX package's init
+    laws, then replaced by the subtrees the checkpoint holds:
+    - ``x.npz``: the JAX package's '/'-keyed params layout;
+    - a native checkpoint directory (``save_checkpoint``): its params;
+    - a reference ``.tar/.ckpt/.pth``: ``load_reference_checkpoint`` (a
+      ``casmvsnet.ckpt`` replaces the cascade only)."""
     params = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
                          device)
-    if cfg.ckpt:
-        if not cfg.ckpt.endswith(".npz"):
-            raise NotImplementedError(
-                f"ucnerf_torch loads '/'-keyed .npz params only; reference "
-                f".tar/.ckpt/.pth checkpoints and orbax checkpoints "
-                f"(resume) are not ported yet (--ckpt {cfg.ckpt})")
+    if not cfg.ckpt:
+        return params
+    if cfg.ckpt.endswith((".tar", ".ckpt", ".pth")):
+        params.update(load_reference_checkpoint(cfg.ckpt))
+    elif cfg.ckpt.endswith(".npz"):
         params.update(state_dict_from_jax(load_params_npz(cfg.ckpt)))
+    elif os.path.isfile(os.path.join(cfg.ckpt, PARAMS_FILE)):
+        params.update(checkpoint_params(cfg.ckpt))
+    else:
+        raise FileNotFoundError(
+            f"--ckpt {cfg.ckpt}: neither a .npz / .tar / .ckpt / .pth file "
+            f"nor a checkpoint directory holding {PARAMS_FILE}")
     return params
