@@ -1,20 +1,26 @@
 """Smoke test of ucnerf_torch on one CUDA card: builds the port's kernels,
 holds each against its plain PyTorch version, serves novel views at the
-SCARED operating point through ``python -m ucnerf_torch.serve``'s entry
-point, and trains at the SCARED train point through ``python -m
-ucnerf_torch.train``'s: a run stopped at a checkpoint, its resume against
-an uninterrupted run, ``--eval`` of the checkpoint over the whole val
-split, and the device scene store against host loading.
+SCARED operating point through ``python -m ucnerf_torch.serve``'s batch
+and HTTP modes, renders a trajectory through ``python -m
+ucnerf_torch.render_path``, and trains at the SCARED train point through
+``python -m ucnerf_torch.train``'s entry point: a run stopped at a
+checkpoint, its resume against an uninterrupted run (both with
+``--deterministic``), ``--eval`` of the checkpoint over the whole val split
+with ``--val_panels all``, the device scene store against host loading,
+and an overfit of one sample.  Which parts of a train step vary run to
+run on the card's default kernels is measured on demand by
+``scripts/determinism_probe.py``.
 
     python3 chip_smoke.py
 
-Phases (one line each): device, build, K1 vs plain, serving, resume,
-store_vs_host, train.  Any failed check raises, so the script exits
-non-zero and prints no result.  Before the last line it prints the card's
-``nvidia-smi`` name and power limit and one JSON line with every kernel of
-the serving and train paths; the last line is ``{"ok": true, "device":
-{...}}``.  Frames, the trainer runs' stdout and directories (metrics,
-test results; their checkpoints are deleted once checked), profiles and a
+Phases (one line each): device, build, k1 (K1 vs plain), serving, http,
+render_path, resume, panels, store_vs_host, train.  Any failed check
+raises, so the script exits non-zero and prints no result.  Before the
+last line it prints the card's ``nvidia-smi`` name and power limit and one
+JSON line with every kernel of the main path (K1's launches summed over
+serving, HTTP, render_path and the eval); the last line is ``{"ok": true,
+"device": {...}}``.  Frames, panels, the trainer runs' stdout and
+directories (their checkpoints are deleted once checked), profiles and a
 JSON record go to ``chiprun_out/chip_smoke/`` beside this file.
 """
 
@@ -42,6 +48,19 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
 SERVE_ARGS = ["--dataset_name", "synthetic", "--img_wh", "320", "256",
               "--view_num", "7"]
 N_REQUESTS = 3
+N_HTTP = 3                 # npz requests of the http phase on default kernels
+# the http phase's npz frames against the batch-mode frame of the same
+# pose, mean abs of rgb, depth and confidence: on the card's default
+# kernels the cascade is not run-to-run deterministic (the first chip run
+# of this phase read rgb max abs 1.6e-2, depth 2.4e-2, confidence 2.3e-3)
+HTTP_TOL = 1e-3
+PATH_FRAMES = 12           # frames of the render_path phase
+# panel 0's 8-bit rendered tile against view 0 rendered again on K1:
+# (mean abs in levels, share of pixels more than one level off).  On the
+# card's default kernels two renders of one pose differ by rgb mean abs
+# 1.3e-5 (0.003 levels), max 2.7e-2 (PERF.md §6), so a few pixels flip
+# at rounding edges; another view's frame is many levels away
+PANEL_TOL = (0.05, 1e-2)
 # the train point of bench.py: 2000 rays (50 patches of 6x6 + 200 uniform)
 # + 1024 sparse-depth rays, 90 samples per ray, cascade depths 48/32/8
 TRAIN_ARGS = [*SERVE_ARGS, "--batch_size", "2000", "--patch_size", "6",
@@ -169,9 +188,11 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    import scipy
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda,
+        numpy=np.__version__, scipy=scipy.__version__,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     return smi
@@ -295,11 +316,12 @@ def phase_k1(cfg, dev):
     return res
 
 
-def kernel_vs_plain_frame(cfg, params, batch, img_hw, dev) -> dict:
+def kernel_vs_plain_frame(cfg, params, batch, img_hw, dev) -> tuple:
     """One frame rendered with K1 and with the plain MLP (at
     ``cfg.nerf_dtype``) from ONE cascade output, so the diff is the MLP's
-    alone (the cascade's cuDNN convolutions need not be bit-reproducible).
-    The caller resets K1's launch count after."""
+    alone (the cascade's cuDNN convolutions need not be bit-reproducible):
+    (diff, K1's rgb [H, W, 3]).  The caller resets K1's launch count
+    after."""
     from ucnerf_torch.kernels.fused_mlp import FusedNeRFMLP
     from ucnerf_torch.models.factory import create_models
     from ucnerf_torch.render.renderer import render_image_chunked
@@ -323,7 +345,7 @@ def kernel_vs_plain_frame(cfg, params, batch, img_hw, dev) -> dict:
                 rgb_mean_abs=float(d_rgb.mean()),
                 depth_max_abs=float(d_depth.max()),
                 depth_mean_rel=float((d_depth / np.abs(
-                    got["plain"][1]).clip(1e-6)).mean()))
+                    got["plain"][1]).clip(1e-6)).mean())), got["kernel"][0]
 
 
 def phase_serving(cfg, dev):
@@ -383,7 +405,7 @@ def phase_serving(cfg, dev):
     params = serve.load_params(cfg, dev)
     diffs = {dt: kernel_vs_plain_frame(cfg.replace(nerf_dtype=dt), params,
                                        renderer.frame_batch(c2w), (H, W),
-                                       dev)
+                                       dev)[0]
              for dt in ("bfloat16", "float32")}
     fused_nerf_mlp.launches = launches   # comparison launches do not count
     check(diffs["float32"]["rgb_max_abs"] <= 1e-3
@@ -399,6 +421,143 @@ def phase_serving(cfg, dev):
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                kernel_vs_plain_frame=diffs, frame_profile=profile)
     log("serving", **res)
+    return res
+
+
+FRAME_KEYS = ("rgb", "depth", "confidence")
+
+
+def frame_diff(got, want) -> dict:
+    """Max and mean abs differences of two frames, each (rgb, depth,
+    confidence)."""
+    out = {}
+    for k, g, w in zip(FRAME_KEYS, got, want):
+        d = np.abs(np.asarray(g, np.float64) - np.asarray(w, np.float64))
+        out[f"{k}_max_abs"] = float(d.max())
+        out[f"{k}_mean_abs"] = float(d.mean())
+    return out
+
+
+def phase_http(cfg, dev):
+    """``make_http_server`` on a free port at the serving point: GET
+    /health; on the card's default kernels N_HTTP npz renders of the first
+    serving pose, each held to that pose's batch-mode frame within
+    HTTP_TOL; then, on deterministic kernels, the renderer's own frame of
+    the pose, the npz request (bit for bit that frame) and the png request
+    (``decode_png`` gives its 8-bit rgb); and a bad request (400)."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from ucnerf_torch import serve
+    from ucnerf_torch.kernels.fused_mlp import fused_nerf_mlp
+    from ucnerf_torch.utils.platform import deterministic_kernels
+    from ucnerf_torch.utils.png import decode_png
+
+    renderer, meta = serve.build_renderer(cfg)
+    c2w = json.loads((OUT_DIR / "requests.jsonl").read_text()
+                     .splitlines()[0])["c2w"]
+    with np.load(OUT_DIR / "frame_000.npz") as f:
+        batch_frame = [f[k] for k in FRAME_KEYS]
+    srv = serve.make_http_server(renderer, meta, port=0)
+    th = threading.Thread(target=srv.serve_forever, args=(0.05,),
+                          daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(body):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(
+                url + "/render", data=json.dumps(body).encode()),
+                timeout=300) as r:
+            return r.read(), r.headers["Content-Type"], (
+                time.perf_counter() - t0) * 1e3
+
+    fused_nerf_mlp.launches = 0
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=300) as r:
+            code, health = r.status, json.loads(r.read())
+        check(code == 200 and health["ok"] and "probe_ms" in health
+              and health["img_wh"] == list(cfg.img_wh),
+              f"GET /health: {code} {health}")
+        ms, frames = [], []
+        for _ in range(N_HTTP):
+            payload, ctype, t = post({"c2w": c2w})
+            ms.append(t)
+            check(ctype == "application/octet-stream", f"npz as {ctype}")
+            with np.load(io.BytesIO(payload)) as f:
+                frames.append([f[k] for k in FRAME_KEYS])
+        vs_batch = [frame_diff(f, batch_frame) for f in frames]
+        spread = frame_diff(frames[1], frames[0])
+        check(all(d[k] <= HTTP_TOL for d in vs_batch
+                  for k in ("rgb_mean_abs", "depth_mean_abs",
+                            "confidence_mean_abs")),
+              f"POST /render npz vs the batch-mode frame: {vs_batch}")
+        with deterministic_kernels():
+            want = renderer.render_np(np.asarray(c2w, np.float32))
+            npz, _, _ = post({"c2w": c2w})
+            with np.load(io.BytesIO(npz)) as f:
+                got = [f[k] for k in FRAME_KEYS]
+            png, ctype, png_ms = post({"c2w": c2w, "format": "png"})
+        det = frame_diff(got, want)
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"POST /render npz is not the renderer's frame on "
+              f"deterministic kernels: {det}")
+        check(ctype == "image/png" and np.array_equal(
+            decode_png(png), (np.clip(want[0], 0, 1) * 255)
+            .astype(np.uint8)), "POST /render png is not the 8-bit frame")
+        try:
+            post({"c2w": [[1, 2], [3, 4]]})
+            bad = None
+        except urllib.error.HTTPError as e:
+            bad = e.code
+        check(bad == 400, f"a malformed request got {bad}, not 400")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(60)
+    launches = fused_nerf_mlp.launches
+    n_frames = N_HTTP + 3
+    n_tiles = -(-cfg.img_wh[0] * cfg.img_wh[1] // cfg.chunk)
+    check(launches == n_frames * n_tiles,
+          f"K1 launches {launches}, expected {n_frames * n_tiles}")
+    res = dict(probe_ms=health["probe_ms"], npz_ms=ms, png_ms=png_ms,
+               ms_per_request=float(np.median(ms[1:])), frames=n_frames,
+               launches=launches, npz_vs_batch=vs_batch,
+               default_kernels_spread=spread, deterministic_vs_renderer=det)
+    log("http", **res)
+    return res
+
+
+def phase_render_path(cfg):
+    """``python -m ucnerf_torch.render_path``: an interp trajectory of
+    PATH_FRAMES frames at the serving point, written as npz."""
+    from ucnerf_torch import render_path
+    from ucnerf_torch.kernels.fused_mlp import fused_nerf_mlp
+
+    out = OUT_DIR / "render_path.npz"
+    buf = io.StringIO()
+    fused_nerf_mlp.launches = 0
+    with contextlib.redirect_stdout(buf):
+        rp = render_path.main(["--traj", "interp", "--n_frames",
+                               str(PATH_FRAMES), "--out", str(out),
+                               *SERVE_ARGS])
+    launches = fused_nerf_mlp.launches
+    (OUT_DIR / "render_path_stdout.txt").write_text(buf.getvalue())
+    data = np.load(out)
+    W, H = cfg.img_wh
+    n_tiles = -(-W * H // cfg.chunk)
+    check(rp["out"] == str(out) and data["rgb"].shape == (PATH_FRAMES, H, W, 3)
+          and data["depth"].shape == (PATH_FRAMES, H, W),
+          f"render_path wrote {rp} {data['rgb'].shape}")
+    check(np.isfinite(data["rgb"]).all() and np.isfinite(data["depth"]).all()
+          and data["rgb"].min() >= 0.0 and data["rgb"].max() <= 1.0,
+          "render_path frames not finite or rgb outside [0, 1]")
+    check(launches == PATH_FRAMES * n_tiles,
+          f"K1 launches {launches}, expected {PATH_FRAMES * n_tiles}")
+    res = dict(frames=rp["frames"], wall_s=rp["wall_s"],
+               steady_ms_per_frame=rp["steady_ms_per_frame"],
+               launches=launches)
+    log("render_path", **res)
     return res
 
 
@@ -469,23 +628,6 @@ def card_vs_cpu_step(dev) -> dict:
     return dict(loss_cpu=loss_cpu, loss_card=loss_card,
                 loss_rel=abs(loss_card - loss_cpu) / abs(loss_cpu),
                 grads=grad_envelope(g_card, g_cpu))
-
-
-@contextlib.contextmanager
-def deterministic():
-    """Deterministic kernels for the block (sort-based scatter-adds,
-    deterministic cuDNN algorithms; cuBLAS needs CUBLAS_WORKSPACE_CONFIG,
-    which ``main`` sets).  With the card's default kernels two identical
-    runs differ after one step: the atomic scatter-adds of the backward
-    change round-off, and Adam's first updates, about lr * sign(gradient),
-    turn that into differences of a whole learning rate."""
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = False
 
 
 def run_trainer(name: str, *argv) -> tuple:
@@ -563,21 +705,29 @@ def phase_train(dev):
     scene: (a) TRAIN_STEPS store-fed steps that stop at a checkpoint and do
     not validate; (b) a resume from it to RESUME_STEPS against as many
     uninterrupted host-fed steps; (c) ``--eval`` of the checkpoint over the
-    whole val split on K1, then K1 vs the plain MLP on its first view; (d)
-    one sample store-fed against host-fed.  (a), (b) and (d) run on
-    deterministic kernels, so that their comparisons see the code and not
-    the card's atomics.  Then an overfit of one sample through
-    make_train_step (default kernels), its last step profiled, and one
-    small-shape step on the card vs the CPU."""
+    whole val split on K1 with ``--val_panels all``, then K1 vs the plain
+    MLP on its first view; (d) one sample store-fed against host-fed.  (a)
+    and (b) run with the trainer's ``--deterministic``, (d) under the same
+    ``deterministic_kernels``, so that their comparisons see the code and
+    not the card's atomics.  Then an overfit of one sample through
+    make_train_step (default kernels), its last step profiled, the same
+    step on deterministic kernels, and one small-shape step on the card vs
+    the CPU."""
     from ucnerf_torch.config import parse_config
     from ucnerf_torch.data import build_dataset
+    from ucnerf_torch.data.base import unnormalize_image
     from ucnerf_torch.kernels.fused_mlp import fused_nerf_mlp
     from ucnerf_torch.models.factory import create_models, init_params
     from ucnerf_torch.ops.rays import draw_train_randomness
     from ucnerf_torch.render.serving import to_device_batch
+    from ucnerf_torch.train import validation
     from ucnerf_torch.train.loop import (TrainState, make_lr_schedule,
                                          make_optimizer, make_train_step)
     from ucnerf_torch.utils import checkpoint_io
+    from ucnerf_torch.utils.platform import deterministic_kernels
+    from ucnerf_torch.utils.png import read_png
+    from ucnerf_torch.utils.viz import PAD, STRIP, visualize_depth
+    save_val_panel = validation.save_val_panel
 
     cfg = parse_config(TRAIN_ARGS)
     W, H = cfg.img_wh
@@ -591,9 +741,8 @@ def phase_train(dev):
     torch.cuda.reset_peak_memory_stats()
 
     # (a) train to a checkpoint: stopped runs save and do not validate
-    with deterministic():
-        summary, lines, wall = run_trainer("a_train", "--stop_after_steps",
-                                           str(TRAIN_STEPS))
+    summary, lines, wall = run_trainer("a_train", "--deterministic",
+                                       "--stop_after_steps", str(TRAIN_STEPS))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = step_lines(lines)
     ckpt = OUT_DIR / "a_train" / "ckpts" / f"step_{TRAIN_STEPS:08d}"
@@ -615,11 +764,12 @@ def phase_train(dev):
     # (b) resume against an uninterrupted (host-fed) run
     host_cfg = OUT_DIR / "host_fed.json"
     host_cfg.write_text(json.dumps({"device_dataset": False}))
-    with deterministic():
-        _, r_lines, _ = run_trainer("b_resumed", "--ckpt", str(ckpt),
-                                    "--stop_after_steps", str(RESUME_STEPS))
-        _, u_lines, _ = run_trainer("b_whole", "--config", str(host_cfg),
-                                    "--stop_after_steps", str(RESUME_STEPS))
+    _, r_lines, _ = run_trainer("b_resumed", "--deterministic", "--ckpt",
+                                str(ckpt), "--stop_after_steps",
+                                str(RESUME_STEPS))
+    _, u_lines, _ = run_trainer("b_whole", "--deterministic", "--config",
+                                str(host_cfg), "--stop_after_steps",
+                                str(RESUME_STEPS))
     resumed = step_lines(r_lines)
     whole = step_lines(u_lines)[TRAIN_STEPS:]
     loss_rel = [abs(r["loss"] - u["loss"]) / abs(u["loss"])
@@ -634,20 +784,32 @@ def phase_train(dev):
             [ln["ms"] for ln in step_lines(u_lines)[2:]])),
         resumed_from=[ln for ln in r_lines if "resumed" in ln])
     log("resume", **resume)
+    # both runs on deterministic kernels: every term and LR of the resumed
+    # steps equals the uninterrupted run's bit for bit
     check(resume["resumed_steps"] == list(range(TRAIN_STEPS + 1,
                                                 RESUME_STEPS + 1))
-          and resume["resumed_lr"] == resume["whole_lr"]
-          and len(loss_rel) == RESUME_STEPS - TRAIN_STEPS
-          and max(loss_rel) <= 1e-3,
-          f"resume vs uninterrupted: {resume}")
+          and len(resumed) == len(whole) == RESUME_STEPS - TRAIN_STEPS
+          and all(r[k] == u[k] for r, u in zip(resumed, whole)
+                  for k in (*terms, "lr")),
+          f"resume vs uninterrupted, not bit for bit: {resume}")
     check(fused_nerf_mlp.launches == 0,
           f"stopped runs launched K1 {fused_nerf_mlp.launches} times")
 
-    # (c) --eval of the checkpoint over the whole val split on K1
+    # (c) --eval of the checkpoint over the whole val split on K1, with a
+    # panel per view; the predictions each panel was drawn from are kept
     with bench_scene():
         val_ds = build_dataset(cfg, "val")
-    ev_summary, ev_lines, ev_wall = run_trainer("c_eval", "--eval", "--ckpt",
-                                                str(ckpt))
+    drawn = []
+
+    def recording(path, gt_rgb, pred_rgb, gt_depth, pred_depth):
+        drawn.append((path, pred_depth))
+        save_val_panel(path, gt_rgb, pred_rgb, gt_depth, pred_depth)
+    validation.save_val_panel = recording
+    try:
+        ev_summary, ev_lines, ev_wall = run_trainer(
+            "c_eval", "--eval", "--ckpt", str(ckpt), "--val_panels", "all")
+    finally:
+        validation.save_val_panel = save_val_panel
     launches = fused_nerf_mlp.launches
     [val] = [ln for ln in ev_lines if "val_step" in ln]
     metrics = ev_summary["val"]
@@ -660,18 +822,53 @@ def phase_train(dev):
           f"validation metrics: {metrics}")
     check((OUT_DIR / "c_eval" / "test_results" / "rgb_evaluation.txt")
           .is_file(), "no rgb_evaluation.txt")
+    # a panel per view: its shape, and its rendered-depth tile is the
+    # depth colormap of the prediction it was drawn from
+    results = OUT_DIR / "c_eval" / "test_results"
+    check(val["panels"] == len(val_ds) == len(drawn)
+          and sorted(p for p, _ in drawn) == [
+              str(results / f"00000000_{i:02d}.png")
+              for i in range(len(val_ds))],
+          f"panels: {val.get('panels')} written, {len(drawn)} drawn")
+    for path, pred_depth in drawn:
+        panel = read_png(path)
+        check(panel.shape == (2 * (STRIP + H) + PAD, 2 * W + PAD, 3),
+              f"panel {path}: shape {panel.shape}")
+        check(np.array_equal(panel[2 * STRIP + H + PAD:, W + PAD:],
+                             visualize_depth(pred_depth)),
+              f"panel {path}: depth tile is not the prediction's colormap")
 
     # K1 vs the plain bf16 MLP on the checkpoint's first val view
     trained = checkpoint_io.checkpoint_params(str(ckpt))
-    diff = kernel_vs_plain_frame(cfg, trained,
-                                 to_device_batch(val_ds[0], dev), (H, W),
-                                 dev)
+    diff, k1_rgb = kernel_vs_plain_frame(cfg, trained,
+                                         to_device_batch(val_ds[0], dev),
+                                         (H, W), dev)
     fused_nerf_mlp.launches = launches   # comparison launches do not count
     check(diff["rgb_mean_abs"] <= 5e-3 and diff["depth_mean_rel"] <= 5e-3,
           f"bf16 kernel validation frame vs plain frame: {diff}")
+    # the panels hold their own views: panel i's GT tile is val view i's
+    # image bit for bit, and panel 0's rendered tile is view 0 as rendered
+    # anew just above, within PANEL_TOL
+    panel_vs_render = {}
+    for i in range(len(val_ds)):
+        panel = read_png(str(results / f"00000000_{i:02d}.png"))
+        gt = np.clip(unnormalize_image(val_ds[i]["images"][0]), 0, 1)
+        check(np.array_equal(panel[STRIP:STRIP + H, :W],
+                             (gt * 255).astype(np.uint8)),
+              f"panel {i}: GT tile is not val view {i}'s image")
+        if i < 2:
+            d = np.abs(panel[STRIP:STRIP + H, W + PAD:].astype(np.int16)
+                       - (np.clip(k1_rgb, 0, 1) * 255).astype(np.int16))
+            panel_vs_render[i] = dict(mean_levels=float(d.mean()),
+                                      share_over_1=float((d > 1).mean()))
+    log("panels", vs_view0_render=panel_vs_render)
+    check(panel_vs_render[0]["mean_levels"] <= PANEL_TOL[0]
+          and panel_vs_render[0]["share_over_1"] <= PANEL_TOL[1],
+          f"panel 0's rendered tile is not view 0's render: "
+          f"{panel_vs_render}")
 
     # (d) one sample store-fed against host-fed
-    with deterministic():
+    with deterministic_kernels():
         svh = store_vs_host(cfg, dev)
     log("store_vs_host", **svh)
     check(not svh["unequal_fields"] and svh["loss_rel"] <= 1e-6,
@@ -704,7 +901,7 @@ def phase_train(dev):
           f"overfit loss did not drop by 10%: {losses}")
     # the same step on deterministic kernels: what exact resume costs
     det_ms = []
-    with deterministic():
+    with deterministic_kernels():
         for _ in range(DET_STEPS):
             draws = draw_train_randomness(gen, **draw_kw)
             torch.cuda.synchronize()
@@ -712,6 +909,7 @@ def phase_train(dev):
             check(np.isfinite(float(step(state, batch, draws)["loss"])),
                   "deterministic step not finite")
             det_ms.append((time.perf_counter() - t1) * 1e3)
+
 
     for name in runs:      # the checkpoints have served; keep the output small
         shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
@@ -736,8 +934,11 @@ def phase_train(dev):
                resume=resume, eval_views=val["views"],
                eval_ms_per_view=val["ms_per_view"], eval_wall_s=ev_wall,
                eval_metrics=metrics, k1_launches=launches,
+               eval_panels=val["panels"],
+               panel_ms_per_view=val["panel_ms_per_view"],
                k1_launches_expected=len(val_ds) * n_tiles,
-               kernel_vs_plain_val_frame=diff, store_vs_host=svh,
+               kernel_vs_plain_val_frame=diff,
+               panels_vs_view0_render=panel_vs_render, store_vs_host=svh,
                overfit_losses=losses, overfit_drop=1.0 - last / first,
                step_profile=profile,
                device_idle_share=profile["device_idle_share"],
@@ -754,23 +955,30 @@ def main():
         raise SystemExit(f"chip_smoke: the ucnerf_torch package is missing "
                          f"beside this script ({e})")
     # cuBLAS is deterministic only with a fixed workspace; set before the
-    # first cuBLAS call (phase train's ``deterministic`` blocks need it)
+    # first cuBLAS call (the trainer's --deterministic runs and the
+    # ``deterministic_kernels`` blocks of phase train need it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     cfg = parse_config(SERVE_ARGS)
     phase_build()
     k1 = phase_k1(cfg, dev)
     sv = phase_serving(cfg, dev)
+    hp = phase_http(cfg, dev)
+    rp = phase_render_path(cfg)
     tr = phase_train(dev)
-    record = {"k1": k1, "serving": sv, "train": tr, "nvidia_smi": smi}
+    record = {"k1": k1, "serving": sv, "http": hp, "render_path": rp,
+              "train": tr, "nvidia_smi": smi,
+              "seconds": time.perf_counter() - t_start}
     (OUT_DIR / "result.json").write_text(json.dumps(record, indent=1))
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_nerf_mlp", "route": "cuda",
         "source": "ucnerf_torch/csrc/fused_mlp.cu",
         "replaces": "ucnerf_tpu/pallas/mlp_kernel.py:115",
-        "launches": sv["launches"] + tr["k1_launches"],
+        "launches": (sv["launches"] + hp["launches"] + rp["launches"]
+                     + tr["k1_launches"]),
         "max_abs_err": k1["serving"]["bf16_vs_plain_bf16_max_abs_err"],
         "ms": k1["bf16_ms"], "plain_ms": k1["plain_bf16_ms"],
         "bound_ms": k1["bound_bf16_ms"], "bound_by": k1["bound_by_bf16"],

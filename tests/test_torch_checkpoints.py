@@ -2,10 +2,13 @@
 native checkpoints round-trip weights, Adam's moments and step bit for
 bit and prune with ``keep``; their ``params.npz`` is the JAX params tree;
 reference ``ucnerf.tar`` / ``casmvsnet.ckpt`` files load equal to JAX's
-``convert_reference_checkpoint``; ``gather_batch`` equals
+``convert_reference_checkpoint``; a JAX orbax checkpoint reaches the
+port through ``scripts/export_params_npz.py``; ``gather_batch`` equals
 ``SceneDataset.__getitem__`` bit for bit."""
 
+import importlib.util
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ import torch
 import jax
 
 from ucnerf_tpu.models.factory import init_params as j_init_params
+from ucnerf_tpu.train.loop import TrainState as JTrainState
 from ucnerf_tpu.utils import checkpoint_io as j_ckpt
 
 from ucnerf_torch.config import parse_config
@@ -30,6 +34,8 @@ from ucnerf_torch.utils.checkpoint_io import (jax_params_from_state_dict,
 from test_torch_train import ARGS, H, W, _jcfg
 
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _state(cfg, seed, mvs_only=False):
@@ -105,6 +111,31 @@ def test_checkpoint_params_are_the_jax_tree(tmp_path):
     got = checkpoint_io.load_params(cfg.replace(ckpt=path, seed=5), "cpu")
     for name, module in (("nerf", state.nerf), ("mvs", state.mvs)):
         for k, v in module.state_dict().items():
+            assert torch.equal(torch.as_tensor(got[name][k]), v), k
+
+
+def test_orbax_checkpoint_exports_to_the_port(tmp_path):
+    """A JAX run's orbax checkpoint, saved by the JAX package from the
+    port's seeded weights: the port's ``--ckpt`` refuses it and names the
+    export script; ``scripts/export_params_npz.py`` with the run's flags
+    writes its params to an npz that the port loads equal, tensor for
+    tensor."""
+    cfg = parse_config(ARGS)
+    sd = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    jstate = JTrainState(params=jax_params_from_state_dict(sd),
+                         opt_state={"count": np.int32(4)}, step=np.int32(4))
+    orbax_dir = j_ckpt.save_checkpoint(str(tmp_path / "ckpts"), jstate, 4)
+    with pytest.raises(ValueError, match="scripts/export_params_npz.py"):
+        checkpoint_io.load_params(cfg.replace(ckpt=orbax_dir), "cpu")
+    spec = importlib.util.spec_from_file_location(
+        "export_params_npz", ROOT / "scripts" / "export_params_npz.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    out = script.main([orbax_dir, str(tmp_path / "params.npz"), *ARGS])
+    got = checkpoint_io.load_params(cfg.replace(ckpt=out, seed=0), "cpu")
+    for name in ("nerf", "mvs"):
+        assert sorted(got[name]) == sorted(sd[name])
+        for k, v in sd[name].items():
             assert torch.equal(torch.as_tensor(got[name][k]), v), k
 
 

@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from ucnerf_tpu.eval import lpips as j_lpips
 from ucnerf_tpu.eval import metrics as j_metrics
 
@@ -14,6 +16,11 @@ from ucnerf_torch.eval import lpips as t_lpips
 from ucnerf_torch.eval import metrics as t_metrics
 
 torch.set_num_threads(1)
+
+# the JAX references compiled whole, as the JAX package's validator runs
+# LPIPS (``load_lpips``): op-by-op dispatch compiles every op on its own
+J_SSIM = jax.jit(j_metrics.ssim)
+J_LPIPS = jax.jit(j_lpips.lpips_distance)
 
 
 def _pairs(rng, n, h, w):
@@ -51,7 +58,7 @@ def test_ssim_matches_jax(rng, hw):
     gts, preds = _pairs(rng, 2, *hw)
     for g, p in zip(gts, preds):
         np.testing.assert_allclose(float(t_metrics.ssim(g, p)),
-                                   float(j_metrics.ssim(g, p)), atol=1e-5)
+                                   float(J_SSIM(g, p)), atol=1e-5)
     assert float(t_metrics.ssim(gts[0], gts[0])) == pytest.approx(1.0,
                                                                   abs=1e-5)
 
@@ -68,9 +75,10 @@ def test_depth_evaluation_matches_jax(rng, masked):
         j_metrics.depth_evaluation(gt, pred.copy(), masks), rtol=1e-6)
 
 
-def test_rgb_evaluation_matches_jax(rng):
+def test_rgb_evaluation_matches_jax(rng, monkeypatch):
     """Without LPIPS weights both read nan; with the same random weights
     each package's LPIPS goes through its own ``rgb_evaluation``."""
+    monkeypatch.setattr(j_metrics, "ssim", J_SSIM)
     gts, preds = _pairs(rng, 2, 32, 40)
     t = t_metrics.rgb_evaluation(gts, preds)
     j = j_metrics.rgb_evaluation(gts, preds)
@@ -85,7 +93,7 @@ def test_rgb_evaluation_matches_jax(rng):
         lpips_fn=lambda a, b: float(t_lpips.lpips_distance(tw, a, b)))
     j = j_metrics.rgb_evaluation(
         gts, preds,
-        lpips_fn=lambda a, b: float(j_lpips.lpips_distance(w, a, b)))
+        lpips_fn=lambda a, b: float(J_LPIPS(w, a, b)))
     np.testing.assert_allclose(t[:2], j[:2], rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(t[2], j[2], rtol=1e-4)
 
@@ -97,7 +105,7 @@ def test_lpips_matches_jax(rng, tmp_path):
     img0 = rng.uniform(size=(64, 64, 3)).astype(np.float32)
     img1 = np.clip(img0 + rng.normal(0, 0.1, img0.shape), 0, 1).astype(
         np.float32)
-    want = float(j_lpips.lpips_distance(w, img0, img1))
+    want = float(J_LPIPS(w, img0, img1))
     got = float(t_lpips.lpips_distance(t_lpips.lpips_weights(w), img0, img1))
     assert want > 0
     np.testing.assert_allclose(got, want, rtol=1e-4)

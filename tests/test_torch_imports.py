@@ -13,7 +13,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ucnerf_tpu", "cv2", "PIL",
-             "imageio"}
+             "imageio", "matplotlib"}
 FILES = sorted((ROOT / "ucnerf_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -34,13 +34,14 @@ def test_no_forbidden_imports(path):
 
 
 def test_serve_imports_with_jax_blocked():
-    """The entry points ``ucnerf_torch.serve`` and ``ucnerf_torch.train``,
-    and the modules the trainer loads (validation, metrics, LPIPS,
-    checkpoints, the device store, writer, prefetcher, profiling), import
-    when importing jax fails."""
+    """The entry points ``ucnerf_torch.serve``, ``ucnerf_torch.train`` and
+    ``ucnerf_torch.render_path``, and the modules they load (validation,
+    metrics, LPIPS, checkpoints, the device store, writer, prefetcher,
+    profiling, PNG, panels, trajectories), import when importing jax and
+    the image libraries fails."""
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'optax', 'ucnerf_tpu', 'cv2', 'PIL',"
-            " 'imageio'):\n"
+            " 'imageio', 'matplotlib'):\n"
             "    sys.modules[m] = None\n"
             "import ucnerf_torch.serve, ucnerf_torch.kernels.fused_mlp\n"
             "import ucnerf_torch.train.__main__\n"
@@ -50,6 +51,8 @@ def test_serve_imports_with_jax_blocked():
             "import ucnerf_torch.data.device_store\n"
             "import ucnerf_torch.utils.writer, ucnerf_torch.utils.prefetch\n"
             "import ucnerf_torch.utils.profiling\n"
+            "import ucnerf_torch.render_path, ucnerf_torch.utils.png\n"
+            "import ucnerf_torch.utils.viz, ucnerf_torch.utils.pose_traj\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

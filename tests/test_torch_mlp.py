@@ -19,6 +19,7 @@ from ucnerf_torch.kernels.fused_mlp import (BF16_STEPS, LAYER_NAMES,
                                             FusedNeRFMLP, fused_nerf_mlp,
                                             layer_blocks,
                                             pack_mlp_weights as t_pack,
+                                            render_mlp,
                                             shuffle_b_fragments as t_shuffle,
                                             unshuffle_b_fragments)
 from ucnerf_torch.models.factory import create_models, init_params
@@ -52,10 +53,11 @@ def case():
     )["nerf"])
     x33 = _inputs(33, cfg.feat_dim, 3)   # 33 * 7 points: not a tile multiple
     x16 = _inputs(16, cfg.feat_dim, 4)
+    f32, bf16 = jax.jit(j_f32.apply), jax.jit(j_bf16.apply)
     out = dict(
-        f32=np.asarray(j_f32.apply({"params": params}, *x33)),
-        truth16=np.asarray(j_f32.apply({"params": params}, *x16)),
-        flax_bf16=np.asarray(j_bf16.apply({"params": params}, *x16)))
+        f32=np.asarray(f32({"params": params}, *x33)),
+        truth16=np.asarray(f32({"params": params}, *x16)),
+        flax_bf16=np.asarray(bf16({"params": params}, *x16)))
     packed = [np.asarray(a) for a in pack_mlp_weights(params, jnp.float32)]
     return dict(params=jax.tree.map(np.asarray, params), x33=x33, x16=x16,
                 packed=packed, **out)
@@ -196,6 +198,20 @@ def test_wrapper_on_cpu_runs_plain_version(case):
         want = nerf(*_t(case["x33"]))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert fused_nerf_mlp.launches == before
+
+
+def test_render_mlp_plain_only_on_the_cpu(case, capsys):
+    """An MLP shape the kernel does not take renders with the plain MLP on
+    the CPU, after one stderr line, and raises on any other device: off
+    the CPU a render runs on the kernel or not at all."""
+    nerf, _ = create_models(Config(view_num=V, N_samples=S, netwidth=64),
+                            "cpu")
+    assert render_mlp(nerf) is nerf
+    assert capsys.readouterr().err.count("plain UCNeRFMLP") == 1
+    with pytest.raises(NotImplementedError, match="kernel only.*width 128"):
+        render_mlp(nerf.to("meta"))
+    assert isinstance(render_mlp(_port_mlp(case).to("meta")), FusedNeRFMLP)
+    assert capsys.readouterr().err == ""
 
 
 def test_init_params_laws():

@@ -94,8 +94,11 @@ def case():
     j["pe"] = j_pe.positional_encoding(jnp.asarray(inp["x"]), 4)
     j["composite"] = j_comp.raw2outputs(inp["raw"], inp["z"], True)
     j["dist"] = j_comp.depth2dist(inp["z"], inp["cos"])
-    j["bilinear"] = j_interp.resize_bilinear(inp["img"], (H, W))
-    j["trilinear"] = j_interp.resize_trilinear(inp["vol"], (4, H, W))
+    # compiled whole: op-by-op dispatch compiles every op on its own
+    j["bilinear"] = jax.jit(j_interp.resize_bilinear, static_argnums=1)(
+        inp["img"], (H, W))
+    j["trilinear"] = jax.jit(j_interp.resize_trilinear, static_argnums=1)(
+        inp["vol"], (4, H, W))
     j["nearest"] = j_interp.upsample2x_nearest(inp["img"])
     common = dict(H=H, W=W, intrinsic=K, c2w=c2ws[0], w2c_ref=w2cs[0],
                   intrinsic_ref=K, near_ref=near, far_ref=far,
@@ -104,15 +107,15 @@ def case():
     nf = j["rays"]["stage_near_far"]
     j["cands"] = j_samp.stratified_jitter(
         j_samp.stage_depth_candidates(nf, S), jax.random.PRNGKey(1))
-    j["warp"] = j_warp.homo_warp(inp["feat"][0], inp["projs"][0],
-                                 inp["depth_vals"], pad=1)
-    j["variance"] = j_mvs._variance_cost_volume(
-        inp["feat"], inp["projs"], inp["depth_vals"], pad=1)
-    j["point_feats"] = j_ff.index_point_feature_fast(inp["volumes"],
-                                                     inp["conf"], j["rays"])
-    j["colors"] = j_ff.build_color_volume_fast(
-        j["rays"]["points_world"], w2cs[1:], np.broadcast_to(K, (V1, 3, 3)),
-        j_ff.pack_quads(jnp.asarray(inp["views"])), (H, W))
+    j["warp"] = jax.jit(lambda: j_warp.homo_warp(
+        inp["feat"][0], inp["projs"][0], inp["depth_vals"], pad=1))()
+    j["variance"] = jax.jit(lambda: j_mvs._variance_cost_volume(
+        inp["feat"], inp["projs"], inp["depth_vals"], pad=1))()
+    j["point_feats"] = jax.jit(j_ff.index_point_feature_fast)(
+        inp["volumes"], inp["conf"], j["rays"])
+    j["colors"] = jax.jit(lambda pts, quads: j_ff.build_color_volume_fast(
+        pts, w2cs[1:], np.broadcast_to(K, (V1, 3, 3)), quads, (H, W)))(
+        j["rays"]["points_world"], j_ff.pack_quads(jnp.asarray(inp["views"])))
     return inp, jax.tree.map(np.asarray, j)
 
 

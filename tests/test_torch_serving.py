@@ -24,6 +24,7 @@ from ucnerf_torch.models.factory import create_models, init_params
 from ucnerf_torch.render.serving import ServingRenderer
 from ucnerf_torch.utils.checkpoint_io import (jax_params_from_state_dict,
                                               state_dict_from_jax)
+from ucnerf_torch.utils.png import read_png
 
 torch.set_num_threads(1)
 
@@ -90,7 +91,8 @@ def test_config_fields_match_jax():
 def test_batch_mode_cli(case, tmp_path, capsys):
     """With the JAX params exported to npz (--ckpt), two requests render
     to their npz files and equal the JAX frame; a malformed line is
-    reported and skipped; a png request gets a clear error."""
+    reported and skipped; a png request renders the same frame as 8-bit
+    RGB."""
     from ucnerf_tpu.utils.checkpoint_io import save_params_npz
     ckpt = save_params_npz(case["params"], str(tmp_path / "params.npz"))
     cfg = parse_config(ARGS)
@@ -103,12 +105,12 @@ def test_batch_mode_cli(case, tmp_path, capsys):
            json.dumps({"c2w": c2w, "out": str(tmp_path / "f.png")})]) + "\n")
     n = serve.main(["--requests", str(reqs), "--device", "cpu", "--ckpt",
                     ckpt, *ARGS])
-    assert n == 2
+    assert n == 3
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("{")]
     errors = [ln["error"] for ln in lines if "error" in ln]
-    assert len(errors) == 2 and "4x4" in errors[0] and "png" in errors[1]
-    assert lines[-1]["frames"] == 2
+    assert len(errors) == 1 and "4x4" in errors[0]
+    assert lines[-1]["frames"] == 3
     frames = [np.load(o) for o in outs]
     for f in frames:
         assert f["rgb"].shape == (32, 64, 3) and f["depth"].shape == (32, 64)
@@ -116,6 +118,9 @@ def test_batch_mode_cli(case, tmp_path, capsys):
     np.testing.assert_array_equal(frames[0]["rgb"], frames[1]["rgb"])
     np.testing.assert_allclose(frames[0]["rgb"], case["frames"][0][0],
                                atol=2e-3, rtol=0)
+    np.testing.assert_array_equal(
+        read_png(str(tmp_path / "f.png")),
+        (np.clip(frames[0]["rgb"], 0, 1) * 255).astype(np.uint8))
 
 
 def test_entry_points_default_to_the_card():

@@ -221,6 +221,33 @@ def test_finetune_step_freezes_cascade(case):
     assert all(moved)
 
 
+@pytest.mark.parametrize("where", ["loss", "gradient"])
+def test_debug_nans_raises_before_the_update(case, where):
+    """--debug_nans: a NaN weight (in the forward, so the loss) or a
+    gradient hook that writes a NaN raises FloatingPointError naming it,
+    and the step makes no update."""
+    cfg = case["cfg"].replace(debug_nans=True)
+    nerf, mvs = _port(cfg, case["params"])
+    layer = nerf.nerf.rgb_linear
+    if where == "loss":
+        with torch.no_grad():
+            layer.weight[0, 0] = float("nan")
+    else:
+        layer.bias.register_hook(lambda g: torch.full_like(g, float("nan")))
+    before = {n: p.detach().clone() for n, p in nerf.named_parameters()}
+    state = t_loop.TrainState(nerf, mvs, t_loop.make_optimizer(cfg, nerf,
+                                                               mvs))
+    step = t_loop.make_train_step(cfg, t_loop.make_lr_schedule(cfg, 10))
+    match = "loss" if where == "loss" else "nerf.rgb_linear.bias"
+    with pytest.raises(FloatingPointError, match=match):
+        step(state, to_device_batch(case["sample"], "cpu"),
+             _draws(cfg, jax.random.PRNGKey(3)))
+    assert state.step == 0
+    for n, p in nerf.named_parameters():
+        torch.testing.assert_close(p.detach(), before[n], rtol=0, atol=0,
+                                   equal_nan=True)
+
+
 def test_cli_trains_saves_and_serves(case, tmp_path, capsys):
     """``python -m ucnerf_torch.train --device cpu --stop_after_steps 2
     --save_params p.npz`` prints its step, checkpoint and summary lines

@@ -16,9 +16,13 @@ import torch
 
 from ucnerf_torch.eval.metrics import DEPTH_METRICS
 from ucnerf_torch.train import __main__ as train_cli
+from ucnerf_torch import render_path, serve
 from ucnerf_torch.utils.checkpoint_io import load_params_npz
+from ucnerf_torch.utils.platform import deterministic_kernels
+from ucnerf_torch.utils.png import read_png
 from ucnerf_torch.utils.prefetch import ThreadPrefetcher
 from ucnerf_torch.utils.profiling import TRACE_FILE, trace
+from ucnerf_torch.utils.viz import PAD, STRIP
 from ucnerf_torch.utils.writer import MetricWriter
 
 from test_torch_train import ARGS
@@ -159,19 +163,31 @@ def test_mvs_only_validation_writes_depth_metrics(chain):
 
 def test_last_epoch_validates(chain):
     """With --val_every_epochs 1 the only epoch validates, and the run
-    validates once more at its end."""
+    validates once more at its end; with ``--val_panels final`` (the
+    default) only that last validation writes panels."""
     assert [ln["val_step"] for ln in vals(chain["full"][1])] == [2, 2]
+    assert [ln.get("panels") for ln in vals(chain["full"][1])] == [None, 6]
+    out = os.path.join(chain["base"], "full", "test_results")
+    assert sorted(f for f in os.listdir(out) if f.endswith(".png")) == [
+        f"00000002_{i:02d}.png" for i in range(6)]
 
 
 def test_eval_writes_rgb_evaluation(chain, tmp_path):
     """--eval of the finetune phase's checkpoint renders the whole val
     split and writes ``rgb_evaluation.txt`` with the JAX package's keys:
-    PSNR, SSIM, LPIPS (nan without its weights) and the depth metrics."""
+    PSNR, SSIM, LPIPS (nan without its weights) and the depth metrics;
+    with ``--val_panels all`` a panel per view."""
     summary, lines = run("--basedir", str(tmp_path), "--expname", "ev",
-                         "--eval", "--ckpt", chain["refine"][0]["ckpt"])
+                         "--eval", "--ckpt", chain["refine"][0]["ckpt"],
+                         "--val_panels", "all")
     assert not steps(lines)
     [val] = vals(lines)
     assert val["views"] == 6 and val["ms_per_view"] > 0
+    assert val["panels"] == 6 and val["panel_ms_per_view"] > 0
+    for i in range(6):
+        panel = read_png(str(tmp_path / "ev" / "test_results"
+                             / f"00000000_{i:02d}.png"))
+        assert panel.shape == (2 * (STRIP + 32) + PAD, 2 * 64 + PAD, 3)
     with open(tmp_path / "ev" / "test_results" / "rgb_evaluation.txt") as fh:
         metrics = json.load(fh)
     assert list(metrics) == RGB_KEYS
@@ -183,6 +199,57 @@ def test_eval_writes_rgb_evaluation(chain, tmp_path):
     with open(os.path.join(chain["base"], "refine", "test_results",
                            "rgb_evaluation.txt")) as fh:
         assert json.load(fh)["psnr"] == metrics["psnr"]
+
+
+def test_eval_renders_shapes_the_kernel_does_not_take(tmp_path, capsys):
+    """--eval at --netwidth 64, a width the fused MLP kernel does not
+    take, renders with the plain MLP after one stderr line naming the
+    reason, and ends with finite metrics."""
+    summary, _ = run("--basedir", str(tmp_path), "--netwidth", "64",
+                     "--eval", "--val_panels", "none")
+    assert capsys.readouterr().err.count("plain UCNeRFMLP") == 1
+    assert np.isfinite([summary["val"][k] for k in RGB_KEYS
+                        if k != "lpips"]).all()
+
+
+@pytest.mark.parametrize("entry", ["train", "serve", "render_path"])
+@pytest.mark.parametrize("option", ["literal_featurization", "mesh_shape"])
+def test_unported_options_raise(entry, option, tmp_path):
+    """fast_featurization false (the literal featurization) and
+    --mesh_shape > 1 are refused by every entry point, not ignored."""
+    if option == "mesh_shape":
+        argv = ["--mesh_shape", "2"]
+    else:
+        cfg = tmp_path / "literal.json"
+        cfg.write_text(json.dumps({"fast_featurization": False}))
+        argv = ["--config", str(cfg)]
+    main = {"train": lambda a: train_cli.main([*CLI, *a]),
+            "serve": lambda a: serve.main(["--requests", "-", "--device",
+                                           "cpu", *ARGS, *a]),
+            "render_path": lambda a: render_path.main(
+                ["--device", "cpu", "--out", str(tmp_path / "p.npz"),
+                 *ARGS, *a])}[entry]
+    match = "mesh_shape" if option == "mesh_shape" else "fast_featurization"
+    with pytest.raises(NotImplementedError, match=match):
+        main(argv)
+
+
+def test_deterministic_flag(monkeypatch):
+    """--deterministic runs the trainer on deterministic kernels and puts
+    the previous settings back after; without it nothing changes."""
+    seen = []
+    monkeypatch.setattr(train_cli, "run", lambda cfg, ns: seen.append(
+        (torch.are_deterministic_algorithms_enabled(),
+         torch.backends.cudnn.deterministic)))
+    train_cli.main([*CLI, "--deterministic"])
+    train_cli.main(CLI)
+    assert seen == [(True, True), (False, False)]
+    assert not torch.are_deterministic_algorithms_enabled()
+    with pytest.raises(KeyError):
+        with deterministic_kernels():
+            assert torch.are_deterministic_algorithms_enabled()
+            raise KeyError("inside")
+    assert not torch.backends.cudnn.deterministic
 
 
 def test_writer_prefetcher_and_trace(tmp_path, monkeypatch):

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Tuple
+import sys
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -121,20 +122,32 @@ class PackedMLP(NamedTuple):
     plain: UCNeRFMLP           # the plain version, for CPU tensors
 
 
+def fused_mlp_unsupported(mlp: UCNeRFMLP) -> Optional[str]:
+    """Why the kernel cannot take this MLP's shape, or None if it can: it
+    takes width 128, depth 6, skips (4,), multires 10/4 and view_num <=
+    17 (the depth and feature biases' inputs fit one 128-wide block)."""
+    nerf = mlp.nerf
+    shape = (nerf.width, nerf.depth, nerf.skips, mlp.multires,
+             mlp.multires_views)
+    if shape != (128, 6, (4,), 10, 4):
+        return (f"the fused MLP kernel takes width 128, depth 6, skips "
+                f"(4,), multires 10/4, not {shape}")
+    v1 = nerf.view_num - 1
+    if _round16(24 + 4 * v1) > 128 or _round16(8 * v1) > 128:
+        return (f"the fused MLP kernel takes view_num <= 17, not "
+                f"{nerf.view_num}")
+    return None
+
+
 def pack_mlp_weights(mlp: UCNeRFMLP) -> PackedMLP:
     """Pad and pack a ``UCNeRFMLP``'s 15 layers for the kernel, in its
     compute dtype (``mlp.nerf.dtype``: bf16, or None for f32).  f32: one
     row-major block per layer in ``LAYER_NAMES`` order.  bf16: the blocks
     of ``BF16_STEPS`` in B-fragment order (``shuffle_b_fragments``)."""
+    reason = fused_mlp_unsupported(mlp)
+    if reason:
+        raise ValueError(reason)
     nerf = mlp.nerf
-    if (nerf.width, nerf.depth, nerf.skips, mlp.multires,
-            mlp.multires_views) != (128, 6, (4,), 10, 4):
-        raise ValueError("the fused MLP kernel takes width 128, depth 6, "
-                         "skips (4,), multires 10/4")
-    v1 = nerf.view_num - 1
-    if _round16(24 + 4 * v1) > 128 or _round16(8 * v1) > 128:
-        raise ValueError(f"the fused MLP kernel takes view_num <= 17, got "
-                         f"{nerf.view_num}")
     use_bf16 = nerf.dtype == torch.bfloat16
     layers = {name: (kernel_rows(name, w), b)
               for name, w, b in layer_blocks(mlp)}
@@ -254,3 +267,31 @@ class FusedNeRFMLP:
 
     def __call__(self, pts, dirs, feats):
         return fused_nerf_mlp(pts, dirs, feats, self.packed)
+
+
+def require_kernel_shape(mlp: UCNeRFMLP) -> Optional[str]:
+    """Why the kernel cannot take ``mlp``'s shape (None if it can), for
+    an MLP whose weights lie on the CPU; on any other device such a shape
+    raises NotImplementedError, since a render there runs on the kernel
+    only."""
+    reason = fused_mlp_unsupported(mlp)
+    device = next(mlp.parameters()).device
+    if reason and device.type != "cpu":
+        raise NotImplementedError(f"ucnerf_torch renders on {device} "
+                                  f"through the fused MLP kernel only: "
+                                  f"{reason}")
+    return reason
+
+
+def render_mlp(mlp: UCNeRFMLP):
+    """The MLP callable of a render: the kernel wrapper where the kernel
+    takes the MLP's shape; else, for weights on the CPU, the plain ``mlp``
+    with one stderr line naming the reason, and on the card
+    NotImplementedError (``require_kernel_shape``).  Decided from the
+    shape alone: a kernel that fails to build or launch still raises."""
+    reason = require_kernel_shape(mlp)
+    if reason is None:
+        return FusedNeRFMLP(mlp)
+    print(f"ucnerf_torch: rendering with the plain UCNeRFMLP: {reason}",
+          file=sys.stderr)
+    return mlp

@@ -34,6 +34,11 @@ def create_models(cfg: Config, device, params: Dict = None
     if cfg.mvs_dtype != "float32":
         raise NotImplementedError(
             "ucnerf_torch runs the cascade in float32 only (mvs_dtype)")
+    if not cfg.fast_featurization:
+        raise NotImplementedError(
+            "ucnerf_torch renders with the fast featurization only "
+            "(fast_featurization false selects the literal path, not "
+            "ported)")
     nerf_dtype = {"float32": None, "bfloat16": torch.bfloat16}[cfg.nerf_dtype]
     nerf = UCNeRFMLP(depth=cfg.netdepth, width=cfg.netwidth,
                      multires=cfg.multires,

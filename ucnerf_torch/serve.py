@@ -1,20 +1,39 @@
-"""Pose -> frame render server of the port, batch mode.
+"""Pose -> frame render server of the port.
 
 Holds one scene's source views, weights and cached FeatureNet features on
 the device (``render/serving.py``) and renders novel views on demand; on
 the card the NeRF MLP runs as the hand-written kernel
 (``kernels/fused_mlp.py``).
 
-    python -m ucnerf_torch.serve --requests reqs.jsonl \
-        --dataset_name synthetic --img_wh 320 256 --view_num 7
+HTTP mode:
+
+    python -m ucnerf_torch.serve --dataset_name synthetic --img_wh 320 256 \
+        --view_num 7 --port 8080
+    curl -s localhost:8080/health
+    curl -s -X POST --data-binary @req.json localhost:8080/render > f.npz
+    # req.json: {"c2w": [[...4x4...]], "format": "npz" | "png"}
+
+``GET /health`` answers 200 with the scene's metadata and a timed device
+round trip (``probe_ms``), or 503 when the device does not answer within
+``--probe_timeout`` seconds.  ``POST /render`` answers the frame, or 400
+for a malformed request.  One listener thread takes one request at a
+time, and the render itself holds a lock: concurrent clients queue.
+
+Batch mode:
+
+    python -m ucnerf_torch.serve ... --requests reqs.jsonl
     # each line: {"c2w": [[...4x4...]], "out": "frame_001.npz"}
 
 Output lines are JSON: one ``{"out", "ms"}`` per frame, ``{"error",
 "line"}`` for a malformed request (the batch goes on), and a final
-``{"frames", "wall_ms", "ms_per_frame"}``.  Frames are ``npz`` (rgb f32,
-depth f32, confidence f32).  ``--ckpt x.npz`` loads the JAX package's
-portable params; without it the weights are drawn from ``--seed``.
-``--device cpu`` runs on the CPU; the default is the card.
+``{"frames", "wall_ms", "ms_per_frame"}``.  Exactly one of ``--port`` and
+``--requests`` is given.
+
+Frames are ``npz`` (rgb f32, depth f32, confidence f32) or ``png`` (rgb as
+8-bit RGB, ``utils/png.py``); a batch line whose ``out`` ends in ``.png``
+asks for png.  ``--ckpt`` takes every form ``python -m ucnerf_torch.train``
+reads; without it the weights are drawn from ``--seed``.  ``--device cpu``
+runs on the CPU; the default is the card.
 """
 
 from __future__ import annotations
@@ -23,63 +42,74 @@ import argparse
 import io
 import json
 import sys
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import numpy as np
 import torch
 
 from ucnerf_torch.config import parse_config
 from ucnerf_torch.data import build_dataset
-from ucnerf_torch.kernels.fused_mlp import FusedNeRFMLP
+from ucnerf_torch.kernels.fused_mlp import render_mlp
 from ucnerf_torch.models.factory import create_models
 from ucnerf_torch.render.serving import ServingRenderer
 from ucnerf_torch.utils.checkpoint_io import load_params
 from ucnerf_torch.utils.platform import resolve_device
+from ucnerf_torch.utils.png import encode_png
 
 
-def build_renderer(cfg, scene_idx: int = 0, device=None):
-    """Dataset + models + weights -> (ServingRenderer, metadata)."""
-    dev = resolve_device(device)
-    ds = build_dataset(cfg, "val")
+def renderer_for(cfg, ds, scene_idx: int, dev) -> tuple:
+    """(ServingRenderer, metadata) of sample ``scene_idx`` of ``ds`` on
+    ``dev``, with the weights of ``--seed`` / ``--ckpt``."""
+    if int(np.prod(cfg.mesh_shape)) > 1:
+        raise NotImplementedError("ucnerf_torch renders on one device "
+                                  "(--mesh_shape)")
     W, H = ds.img_wh
     nerf, mvs = create_models(cfg, dev, load_params(cfg, dev))
-    mlp = FusedNeRFMLP(nerf)
     sample = ds[scene_idx]
     scan = ds.metas[scene_idx][0]
-    renderer = ServingRenderer(cfg, mlp, mvs, sample, (H, W),
+    renderer = ServingRenderer(cfg, render_mlp(nerf), mvs, sample, (H, W),
                                ds.scene[scan]["intrinsic"], dev)
     meta = {"scan": str(scan), "img_wh": [W, H], "view_num": cfg.view_num,
             "N_samples": cfg.N_samples, "chunk": cfg.chunk,
+            "mesh_shape": list(cfg.mesh_shape),
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu"),
             "example_c2w": np.asarray(sample["c2ws"][0]).tolist()}
     return renderer, meta
 
 
+def build_renderer(cfg, scene_idx: int = 0, device=None):
+    """Dataset + models + weights -> (ServingRenderer, metadata)."""
+    dev = resolve_device(device)
+    return renderer_for(cfg, build_dataset(cfg, "val"), scene_idx, dev)
+
+
 def encode_frame(rgb, depth, conf, fmt: str) -> tuple:
-    """(payload bytes, content-type) for a rendered frame (npz only)."""
-    if fmt != "npz":
-        raise ValueError(f"format {fmt!r} is not served by ucnerf_torch yet "
-                         "(npz only)")
+    """(payload bytes, content-type) for a rendered frame."""
+    if fmt == "png":
+        return (encode_png((np.clip(rgb, 0, 1) * 255).astype(np.uint8)),
+                "image/png")
     buf = io.BytesIO()
     np.savez(buf, rgb=rgb, depth=depth, confidence=conf)
     return buf.getvalue(), "application/octet-stream"
 
 
 def validate_request(req: dict) -> tuple:
-    """Request dict -> (c2w [4,4] f32, fmt).  Raises ValueError on a
-    malformed request."""
+    """Request dict -> (c2w [4,4] f32, fmt).  Raises ValueError or
+    TypeError on a malformed request (HTTP maps them to 400)."""
+    if not isinstance(req, dict):
+        raise ValueError(f"a request is a JSON object, got "
+                         f"{type(req).__name__}")
     c2w = np.asarray(req.get("c2w", None), dtype=np.float32)
     if c2w.shape != (4, 4):
         raise ValueError(f"'c2w' must be a 4x4 matrix, got {c2w.shape}")
     if not np.isfinite(c2w).all():
         raise ValueError("'c2w' contains non-finite values")
     fmt = req.get("format", "npz")
-    if fmt == "png":
-        raise ValueError("png output is not served by ucnerf_torch yet; "
-                         "ask for npz")
-    if fmt != "npz":
-        raise ValueError(f"unknown format {fmt!r} (npz)")
+    if fmt not in ("npz", "png"):
+        raise ValueError(f"unknown format {fmt!r} (npz|png)")
     return c2w, fmt
 
 
@@ -87,6 +117,98 @@ def handle_render(renderer: ServingRenderer, req: dict) -> tuple:
     """Validate one request dict and render it -> (payload, content_type)."""
     c2w, fmt = validate_request(req)
     return encode_frame(*renderer.render_np(c2w), fmt)
+
+
+def device_round_trip(device) -> float:
+    """A tiny tensor to ``device`` and back; returns the value."""
+    return float(torch.full((), 2.0, device=device).cpu())
+
+
+# the last probe thread that timed out, None while the device answers: a
+# hung device is the whole process's, so every server shares the latch
+_PROBE_HUNG = [None]
+
+
+def probe_backend(timeout_s: float = 10.0, device="cpu") -> dict:
+    """``device_round_trip`` on a daemon thread, joined for at most
+    ``timeout_s``: a hung device reports unhealthy instead of hanging the
+    health check.  While a timed-out probe is still alive, later probes
+    fail at once instead of stacking more hung threads; once it finishes
+    (a slow round trip, not a hang) the device reports healthy again."""
+    hung = _PROBE_HUNG[0]
+    if hung is not None:
+        if hung.is_alive():
+            return {"ok": False, "error":
+                    "previous device probe still hung; device wedged"}
+        _PROBE_HUNG[0] = None
+    result = {}
+
+    def work():
+        try:
+            t0 = time.perf_counter()
+            result["value"] = device_round_trip(device)
+            result["ms"] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:        # reported as unhealthy, not a crash
+            result["error"] = f"{type(e).__name__}: {e}"
+
+    th = threading.Thread(target=work, daemon=True)
+    th.start()
+    th.join(timeout_s)
+    if th.is_alive():
+        _PROBE_HUNG[0] = th
+        return {"ok": False,
+                "error": f"device probe timed out after {timeout_s}s"}
+    if "error" in result:
+        return {"ok": False, "error": result["error"]}
+    return {"ok": True, "probe_ms": round(result["ms"], 3)}
+
+
+def make_http_server(renderer, meta, host: str = "127.0.0.1",
+                     port: int = 8080, probe_timeout: float = 10.0):
+    """A single-threaded HTTP server on (host, port); port 0 takes a free
+    one.  The caller runs ``.serve_forever()``."""
+    render_lock = threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code, payload: bytes, ctype: str):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def do_GET(self):
+            if self.path.split("?")[0] == "/health":
+                probe = probe_backend(probe_timeout, renderer.device)
+                self._send(200 if probe["ok"] else 503,
+                           json.dumps({**meta, **probe}).encode(),
+                           "application/json")
+            else:
+                self._send(404, b'{"error": "use GET /health or POST '
+                                b'/render"}', "application/json")
+
+        def do_POST(self):
+            if self.path != "/render":
+                self._send(404, b'{"error": "POST /render"}',
+                           "application/json")
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                t0 = time.perf_counter()
+                with render_lock:
+                    payload, ctype = handle_render(renderer, req)
+                self.log_message("rendered in %.1f ms",
+                                 (time.perf_counter() - t0) * 1e3)
+                self._send(200, payload, ctype)
+            except (ValueError, TypeError) as e:   # JSONDecodeError too
+                self._send(400, json.dumps({"error": str(e)}).encode(),
+                           "application/json")
+
+        def log_message(self, fmt, *args):
+            sys.stderr.write("ucnerf_torch.serve: " + fmt % args + "\n")
+
+    return HTTPServer((host, port), Handler)
 
 
 def run_batch(renderer, lines, pipeline: bool = True) -> int:
@@ -113,13 +235,13 @@ def run_batch(renderer, lines, pipeline: bool = True) -> int:
             continue
         try:
             req = json.loads(line)
-            if "out" not in req:
+            if not isinstance(req, dict) or "out" not in req:
                 raise ValueError("request missing 'out' path")
             out = req["out"]
             fmt = req.get("format",
                           "png" if str(out).endswith(".png") else "npz")
             c2w, fmt = validate_request(dict(req, format=fmt))
-        except (ValueError, TypeError, json.JSONDecodeError) as e:
+        except (ValueError, TypeError) as e:
             # a malformed line must not kill the remaining batch
             print(json.dumps({"error": str(e), "line": line[:200]}))
             continue
@@ -143,12 +265,20 @@ def run_batch(renderer, lines, pipeline: bool = True) -> int:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(add_help=False)
-    parser.add_argument("--requests", required=True,
-                        help="JSON-lines request file, '-' = stdin")
+    parser.add_argument("--port", type=int, default=None,
+                        help="HTTP mode: listen on this port (0: any free)")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--requests", default=None,
+                        help="batch mode: JSON-lines request file, '-' = "
+                        "stdin")
+    parser.add_argument("--probe_timeout", type=float, default=10.0,
+                        help="GET /health device probe timeout (s)")
     parser.add_argument("--scene_idx", type=int, default=0)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
     ns, rest = parser.parse_known_args(argv)
+    if (ns.port is None) == (ns.requests is None):
+        parser.error("exactly one of --port / --requests is required")
     cfg = parse_config(rest)
 
     renderer, meta = build_renderer(cfg, ns.scene_idx, ns.device)
@@ -156,13 +286,23 @@ def main(argv=None):
     renderer.render_np(np.asarray(renderer.sample["c2ws"][0]))
     print(f"ucnerf_torch.serve: warmed up in {time.perf_counter() - t0:.1f}s;"
           f" scene {meta['scan']} at {meta['img_wh']} on {meta['device']}")
-    if ns.requests == "-":
-        n = run_batch(renderer, sys.stdin, pipeline=False)
-    else:
-        with open(ns.requests) as fh:
-            n = run_batch(renderer, fh)
-    print(f"ucnerf_torch.serve: rendered {n} request(s)")
-    return n
+    if ns.requests is not None:
+        if ns.requests == "-":
+            n = run_batch(renderer, sys.stdin, pipeline=False)
+        else:
+            with open(ns.requests) as fh:
+                n = run_batch(renderer, fh)
+        print(f"ucnerf_torch.serve: rendered {n} request(s)")
+        return n
+
+    srv = make_http_server(renderer, meta, ns.host, ns.port,
+                           probe_timeout=ns.probe_timeout)
+    print(f"ucnerf_torch.serve: listening on http://{srv.server_address[0]}:"
+          f"{srv.server_address[1]} (GET /health, POST /render)", flush=True)
+    try:
+        srv.serve_forever()
+    finally:
+        srv.server_close()
 
 
 if __name__ == "__main__":

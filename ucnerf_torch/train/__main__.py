@@ -20,17 +20,23 @@ steps (``--keep_ckpts`` prunes), at ``--stop_after_steps`` (which then
 exits with no final validation, as a killed run would) and at the end.
 Validation covers the whole val split every ``--val_every_epochs`` epochs
 and once more at the end, and writes ``test_results/rgb_evaluation.txt``
-(``mvs_evaluation.txt`` under ``--mvs_only``).  With ``--device_dataset``
+(``mvs_evaluation.txt`` under ``--mvs_only``) and, per ``--val_panels
+all|final|none``, a PNG panel per view (``final``: at the last validation
+only; ``--eval`` counts as one).  With ``--device_dataset``
 (the default) the train scenes sit on the device and each step's batch is
 gathered there (``data/device_store.py``); a thread builds the next
 samples' host payloads while the step runs.  ``--profile_dir`` traces the
 step that takes the count from 10 to 11.  Metrics go to
 ``<basedir>/<expname>/tb/metrics.jsonl`` every 50 steps.
 
-Two flags belong to this entry point only: ``--device`` (a torch device;
-the default is the card, ``--device cpu`` runs on the CPU) and
+Three flags belong to this entry point only: ``--device`` (a torch
+device; the default is the card, ``--device cpu`` runs on the CPU),
 ``--save_params out.npz`` (the trained weights in the JAX package's
-``'/'``-keyed layout).
+``'/'``-keyed layout) and ``--deterministic`` (deterministic kernels,
+``utils/platform.py::deterministic_kernels``: on the card a resume equals
+an uninterrupted run bit for bit only with it).  ``--debug_nans`` turns on
+autograd's anomaly mode and raises FloatingPointError at the first step
+whose loss or any gradient is not finite, before its update.
 
 Output, one JSON object per line: per step ``{"step", "epoch", <loss
 terms>, "lr", "ms"}`` (``step`` counts the updates made, ``lr`` is the one
@@ -54,6 +60,7 @@ import argparse
 import contextlib
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -63,6 +70,7 @@ from ucnerf_torch.config import Config, parse_config
 from ucnerf_torch.data import build_dataset
 from ucnerf_torch.data.device_store import (build_store, gather_batch,
                                             sample_indices, store_nbytes)
+from ucnerf_torch.kernels.fused_mlp import require_kernel_shape
 from ucnerf_torch.models.factory import create_models
 from ucnerf_torch.ops.rays import draw_train_randomness
 from ucnerf_torch.render.serving import to_device_batch
@@ -71,7 +79,8 @@ from ucnerf_torch.train.loop import (TrainState, make_lr_schedule,
                                      objective)
 from ucnerf_torch.train.validation import Validator
 from ucnerf_torch.utils import checkpoint_io
-from ucnerf_torch.utils.platform import resolve_device
+from ucnerf_torch.utils.platform import (deterministic_kernels,
+                                         resolve_device)
 from ucnerf_torch.utils.prefetch import ThreadPrefetcher
 from ucnerf_torch.utils.profiling import RateMeter, trace
 from ucnerf_torch.utils.writer import MetricWriter
@@ -97,15 +106,17 @@ def _emit(**line):
     print(json.dumps(line), flush=True)
 
 
-def validate(validator: Validator, nerf, mvs, step: int, device) -> dict:
-    """One validation over the val split, timed to its last metric, and
-    its JSON line."""
+def validate(validator: Validator, nerf, mvs, step: int, device,
+             final: bool) -> dict:
+    """One validation over the val split, timed to its last metric and
+    panel, and its JSON line."""
     _sync(device)
     t0 = time.perf_counter()
-    metrics = validator(nerf, mvs)
+    metrics = validator(nerf, mvs, step, final)
     ms = (time.perf_counter() - t0) * 1e3
     n = len(validator.val_ds)
-    _emit(val_step=step, views=n, ms_per_view=ms / n, **metrics)
+    _emit(val_step=step, views=n, ms_per_view=ms / n, **metrics,
+          **(validator.panels or {}))
     return metrics
 
 
@@ -136,6 +147,9 @@ def main(argv=None) -> dict:
                         help="torch device (default: the card)")
     parser.add_argument("--save_params", default=None,
                         help="write the trained params to this .npz")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="deterministic kernels (exact resume on the "
+                        "card, at a cost per step)")
     ns, rest = parser.parse_known_args(argv)
     cfg = parse_config(rest)
     if cfg.mvs_only and cfg.finetune is not None:
@@ -144,15 +158,23 @@ def main(argv=None) -> dict:
     if int(np.prod(cfg.mesh_shape)) > 1:
         raise NotImplementedError("ucnerf_torch.train runs on one device "
                                   "(--mesh_shape)")
+    with deterministic_kernels(ns.deterministic):
+        return run(cfg, ns)
+
+
+def run(cfg: Config, ns: argparse.Namespace) -> dict:
+    """The run ``main`` parsed: ``--eval``, or training from ``--seed`` or
+    ``--ckpt`` to the end or to ``--stop_after_steps``."""
     dev = resolve_device(ns.device)
 
     nerf, mvs = create_models(cfg, dev, checkpoint_io.load_params(cfg, dev))
+    require_kernel_shape(nerf)      # before a long run, not at validation
     if cfg.ckpt:
         _emit(restored=cfg.ckpt, params_only=cfg.ckpt_params_only)
     validator = Validator(cfg, dev)
     if cfg.eval:
-        summary = {"eval": cfg.ckpt, "val": validate(validator, nerf, mvs, 0,
-                                                     dev)}
+        summary = {"eval": cfg.ckpt,
+                   "val": validate(validator, nerf, mvs, 0, dev, final=True)}
         _emit(**summary)
         return summary
 
@@ -166,6 +188,11 @@ def main(argv=None) -> dict:
     start_epoch, skip = divmod(state.step, n_train)
     if state.step:
         _emit(resumed=state.step, epoch=start_epoch, skip=skip)
+        if dev.type == "cuda" and not ns.deterministic:
+            print("ucnerf_torch.train: resuming on the card's default "
+                  "kernels, so the resumed steps will not equal an "
+                  "uninterrupted run bit for bit (--deterministic makes "
+                  "them equal)", file=sys.stderr)
     schedule = make_lr_schedule(cfg, n_train)
     train_step = make_train_step(cfg, schedule)
     fetch, to_batch = sample_source(cfg, train_ds, dev)
@@ -222,12 +249,13 @@ def main(argv=None) -> dict:
         if stop:
             break
         if (epoch + 1) % cfg.val_every_epochs == 0:
-            validate(validator, nerf, mvs, state.step, dev)
+            validate(validator, nerf, mvs, state.step, dev, final=False)
     wall = time.perf_counter() - t_all
 
     if state.step != last_saved:
         ckpt = save(ckpt_dir, state, cfg)
-    val = None if stop else validate(validator, nerf, mvs, state.step, dev)
+    val = (None if stop
+           else validate(validator, nerf, mvs, state.step, dev, final=True))
     writer.close()
     if ns.save_params:
         checkpoint_io.save_params_npz(checkpoint_io.params_tree(nerf, mvs),

@@ -205,12 +205,31 @@ def make_train_step(cfg: Config, schedule: Callable):
     forward, backward, LR = ``schedule(state.step)`` (the count of updates
     already made), one Adam update.  A trained parameter that got no
     gradient gets a zero one, so its moments decay as in an update of the
-    whole tree."""
+    whole tree.  ``--debug_nans`` runs forward and backward in autograd's
+    anomaly mode and raises FloatingPointError, before the update, when
+    the loss or a gradient is not finite."""
+    anomaly = (torch.autograd.detect_anomaly if cfg.debug_nans
+               else contextlib.nullcontext)
+
     def train_step(state: TrainState, batch, draws: TrainDraws) -> Dict:
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss, metrics = scene_loss(cfg, state.nerf, state.mvs, batch, draws)
-        loss.backward()
+        with anomaly():
+            loss, metrics = scene_loss(cfg, state.nerf, state.mvs, batch,
+                                       draws)
+            if cfg.debug_nans and not torch.isfinite(loss):
+                raise FloatingPointError(
+                    f"--debug_nans: step {state.step} loss is "
+                    f"{float(loss.detach())}")
+            loss.backward()
+        if cfg.debug_nans:
+            bad = [n for m in (state.nerf, state.mvs)
+                   for n, p in m.named_parameters()
+                   if p.grad is not None and not torch.isfinite(p.grad).all()]
+            if bad:
+                raise FloatingPointError(
+                    f"--debug_nans: step {state.step} gradients not finite "
+                    f"in {len(bad)} tensors: {', '.join(bad[:5])}")
         lr = schedule(state.step)
         for group in opt.param_groups:
             group["lr"] = lr

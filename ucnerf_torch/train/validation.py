@@ -5,21 +5,28 @@
 is then gathered there from an index payload; the GT arrays for the
 metrics come from the dataset's scene arrays).  Each call renders every
 val view with the eval render on the fused MLP kernel, packed anew from
-the current weights, groups the views per scan, and writes the metrics to
+the current weights (``render_mlp``: on the CPU the plain MLP where the
+kernel does not take its shape; on the card such a shape raises), groups the views per scan, and writes to
 ``<basedir>/<expname>/test_results/``:
 
 - ``rgb_evaluation.txt``: PSNR, SSIM, LPIPS and, where GT depth exists,
   the 7 depth metrics, each the mean over scans, plus ``per_scan`` with
   more than one scan (the JAX package's keys);
 - ``mvs_evaluation.txt`` under ``--mvs_only``: the cascade's stage-3 depth
-  against GT depth, the 7 depth metrics over the split.
+  against GT depth, the 7 depth metrics over the split;
+- ``{step:08d}_{i:02d}.png`` per val view with ``--val_panels all``, or
+  at the run's last validation with ``final`` (the default): the 2x2
+  GT/rendered RGB and depth panel of ``utils/viz.py``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
 import sys
+import threading
+import time
 from typing import Dict
 
 import numpy as np
@@ -32,9 +39,10 @@ from ucnerf_torch.data.device_store import (build_store, gather_batch,
 from ucnerf_torch.eval.lpips import load_lpips
 from ucnerf_torch.eval.metrics import (DEPTH_METRICS, depth_evaluation,
                                        rgb_evaluation)
-from ucnerf_torch.kernels.fused_mlp import FusedNeRFMLP
+from ucnerf_torch.kernels.fused_mlp import render_mlp
 from ucnerf_torch.render.serving import to_device_batch
 from ucnerf_torch.train.loop import make_eval_render, run_mvs
+from ucnerf_torch.utils.viz import save_val_panel
 
 LPIPS_WARNING = (
     "WARNING: LPIPS weights not found (pretrained_weights/lpips_alex.npz "
@@ -58,10 +66,7 @@ class Validator:
                       if cfg.device_dataset else None)
         self._lpips_fn = None
         self._lpips_tried = False
-        if cfg.val_panels != "none" and not cfg.mvs_only:
-            print(f"validation panels (--val_panels {cfg.val_panels}) are "
-                  "not written: they wait for a PNG encoder that needs "
-                  "neither cv2 nor PIL", file=sys.stderr)
+        self.panels = None      # the last validation's panel count and time
 
     @property
     def out_dir(self) -> str:
@@ -97,10 +102,52 @@ class Validator:
         inds = to_device_batch(sample_indices(ds, i), self.device)
         return gather_batch(self.store, inds), gt
 
-    def __call__(self, nerf, mvs) -> Dict:
+    def __call__(self, nerf, mvs, step: int = 0, final: bool = True
+                 ) -> Dict:
+        """Metrics of one validation at ``step``; ``final`` marks the
+        run's last one (``--val_panels final`` writes panels there only)."""
         if self.cfg.mvs_only:
             return run_mvs_validation(self, mvs)
-        return run_validation(self, nerf, mvs)
+        panels = (self.cfg.val_panels == "all"
+                  or (self.cfg.val_panels == "final" and final))
+        return run_validation(self, nerf, mvs, step if panels else None)
+
+
+class PanelWriter:
+    """Writes validation panels on a worker thread, so the PNG encoding
+    overlaps the metrics.  Leaving the ``with`` block joins the thread
+    and re-raises the first error a panel met.  ``written`` counts the
+    panels, ``seconds`` the worker's time on them."""
+
+    def __init__(self):
+        self._jobs = queue.Queue()
+        self._errors = []
+        self.written = 0
+        self.seconds = 0.0
+        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread.start()
+
+    def _work(self):
+        while (job := self._jobs.get()) is not None:
+            t0 = time.perf_counter()
+            try:
+                save_val_panel(*job)
+                self.written += 1
+            except Exception as e:      # re-raised by __exit__
+                self._errors.append(e)
+            self.seconds += time.perf_counter() - t0
+
+    def put(self, path: str, gt_rgb, pred_rgb, gt_depth, pred_depth):
+        self._jobs.put((path, gt_rgb, pred_rgb, gt_depth, pred_depth))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._jobs.put(None)
+        self._thread.join()
+        if exc_type is None and self._errors:
+            raise self._errors[0]
 
 
 def _write(path: str, metrics: Dict):
@@ -132,13 +179,16 @@ def run_mvs_validation(validator: Validator, mvs) -> Dict:
     return metrics
 
 
-def run_validation(validator: Validator, nerf, mvs) -> Dict:
+def run_validation(validator: Validator, nerf, mvs, panel_step=None
+                   ) -> Dict:
     """Every val view rendered on the fused MLP, the metrics per scan, and
     their means over scans (the reference's on_validation_epoch_end groups
-    val views per scan, ``train.py:342-379``)."""
-    cfg, ds, dev = validator.cfg, validator.val_ds, validator.device
+    val views per scan, ``train.py:342-379``).  With ``panel_step`` each
+    view's GT/rendered panel goes to
+    ``test_results/{panel_step:08d}_{i:02d}.png``."""
+    cfg, ds = validator.cfg, validator.val_ds
     W, H = ds.img_wh
-    render_view = make_eval_render(cfg, FusedNeRFMLP(nerf), mvs, (H, W))
+    render_view = make_eval_render(cfg, render_mlp(nerf), mvs, (H, W))
     gts, rgbs, depths = [], [], []
     for i in range(len(ds)):
         batch, gt = validator.val_batch(i)
@@ -146,7 +196,27 @@ def run_validation(validator: Validator, nerf, mvs) -> Dict:
         gts.append(gt)
         rgbs.append(rgb)
         depths.append(depth)
+    validator.panels = None
+    if panel_step is None:
+        return rgb_metrics(validator, gts, rgbs, depths)
+    with PanelWriter() as panels:
+        for i, gt in enumerate(gts):
+            panels.put(os.path.join(validator.out_dir,
+                                    f"{panel_step:08d}_{i:02d}.png"),
+                       np.clip(unnormalize_image(gt["image"]), 0, 1),
+                       rgbs[i].cpu().numpy(), gt["depth"],
+                       depths[i].cpu().numpy())
+        metrics = rgb_metrics(validator, gts, rgbs, depths)
+    validator.panels = dict(panels=panels.written,
+                            panel_ms_per_view=panels.seconds * 1e3
+                            / max(panels.written, 1))
+    return metrics
 
+
+def rgb_metrics(validator: Validator, gts, rgbs, depths) -> Dict:
+    """PSNR, SSIM, LPIPS and the depth metrics per scan and their means
+    over scans, written to ``rgb_evaluation.txt``."""
+    ds, dev = validator.val_ds, validator.device
     lpips_fn = validator.lpips_fn
     scans = np.asarray([g["scan_idx"] for g in gts])
     rgb_rows, depth_rows, per_scan = [], [], {}

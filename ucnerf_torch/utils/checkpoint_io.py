@@ -195,6 +195,8 @@ def jax_params_from_state_dict(state_dicts) -> Dict:
 # ------------------------------------------------------ native checkpoints
 PARAMS_FILE = "params.npz"
 STATE_FILE = "train_state.pt"
+# what marks a directory as an orbax checkpoint (the JAX package's format)
+ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
 
 
 def params_tree(nerf, mvs) -> Dict:
@@ -315,6 +317,8 @@ def load_params(cfg, device) -> Dict[str, Dict]:
     laws, then replaced by the subtrees the checkpoint holds:
     - ``x.npz``: the JAX package's '/'-keyed params layout;
     - a native checkpoint directory (``save_checkpoint``): its params;
+    - a JAX orbax checkpoint directory raises, naming
+      ``scripts/export_params_npz.py``, which exports it to an ``.npz``;
     - a reference ``.tar/.ckpt/.pth``: ``load_reference_checkpoint`` (a
       ``casmvsnet.ckpt`` replaces the cascade only)."""
     params = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
@@ -327,6 +331,13 @@ def load_params(cfg, device) -> Dict[str, Dict]:
         params.update(state_dict_from_jax(load_params_npz(cfg.ckpt)))
     elif os.path.isfile(os.path.join(cfg.ckpt, PARAMS_FILE)):
         params.update(checkpoint_params(cfg.ckpt))
+    elif any(os.path.exists(os.path.join(cfg.ckpt, f)) for f in ORBAX_FILES):
+        raise ValueError(
+            f"--ckpt {cfg.ckpt} is an orbax checkpoint of the JAX package, "
+            f"which ucnerf_torch cannot read.  Export its "
+            f"weights where JAX runs, with the run's own flags:\n"
+            f"  python scripts/export_params_npz.py {cfg.ckpt} params.npz "
+            f"<flags>\nand pass --ckpt params.npz")
     else:
         raise FileNotFoundError(
             f"--ckpt {cfg.ckpt}: neither a .npz / .tar / .ckpt / .pth file "
