@@ -7,18 +7,24 @@ ucnerf_torch.render_path``, and trains at the SCARED train point through
 checkpoint, its resume against an uninterrupted run (both with
 ``--deterministic``), ``--eval`` of the checkpoint over the whole val split
 with ``--val_panels all``, the device scene store against host loading,
-and an overfit of one sample.  Which parts of a train step vary run to
-run on the card's default kernels is measured on demand by
-``scripts/determinism_probe.py``.
+and an overfit of one sample.  Phase ``scared`` fabricates a
+SCARED-layout scan at 1280x1024 with the port's own writers, loads it cold
+and warm through the scene cache, trains 12 steps on it through ``python
+-m ucnerf_torch.train --dataset_name scared``, evaluates the checkpoint
+over its val split on K1, serves one request from it, and decodes the
+committed JPEG fixtures to their recorded digests.  Which parts of a train
+step vary run to run on the card's default kernels is measured on demand
+by ``scripts/determinism_probe.py``.
 
     python3 chip_smoke.py
 
 Phases (one line each): device, build, k1 (K1 vs plain), serving, http,
-render_path, resume, panels, store_vs_host, train.  Any failed check
+render_path, resume, panels, store_vs_host, train, scared.  Any failed check
 raises, so the script exits non-zero and prints no result.  Before the
 last line it prints the card's ``nvidia-smi`` name and power limit and one
 JSON line with every kernel of the main path (K1's launches summed over
-serving, HTTP, render_path and the eval); the last line is ``{"ok": true,
+serving, HTTP, render_path, the eval and phase scared's eval and request);
+the last line is ``{"ok": true,
 "device": {...}}``.  Frames, panels, the trainer runs' stdout and
 directories (their checkpoints are deleted once checked), profiles and a
 JSON record go to ``chiprun_out/chip_smoke/`` beside this file.
@@ -63,13 +69,26 @@ PATH_FRAMES = 12           # frames of the render_path phase
 PANEL_TOL = (0.05, 1e-2)
 # the train point of bench.py: 2000 rays (50 patches of 6x6 + 200 uniform)
 # + 1024 sparse-depth rays, 90 samples per ray, cascade depths 48/32/8
-TRAIN_ARGS = [*SERVE_ARGS, "--batch_size", "2000", "--patch_size", "6",
-              "--patch_num", "50", "--n_depth_rays", "1024", "--N_samples",
-              "90", "--num_epochs", "30", "--chunk", "1024"]
+TRAIN_POINT = ["--batch_size", "2000", "--patch_size", "6", "--patch_num",
+               "50", "--n_depth_rays", "1024", "--N_samples", "90",
+               "--num_epochs", "30", "--chunk", "1024"]
+TRAIN_ARGS = [*SERVE_ARGS, *TRAIN_POINT]
 TRAIN_STEPS = 12           # the run that stops at a checkpoint
 RESUME_STEPS = 16          # its resume, and the uninterrupted run
 OVERFIT_STEPS = 30
 DET_STEPS = 8              # the overfit step again on deterministic kernels
+# phase scared: a SCARED-layout scan fabricated here at the native
+# 1280x1024 (frames as PNG: the card's machine has no JPEG encoder),
+# trained and evaluated at the same train point through --dataset_name
+# scared; it lives beside OUT_DIR while the phase runs and is deleted
+SCAN_DIR = OUT_DIR.parent / "scared_scan"
+SCAN_FRAMES = 16
+SCAN_WH = (1280, 1024)
+SCAN_DPT_WH = (480, 384)     # the DPT prior's size (not 320x256)
+SCAN_POINTS = 4000
+SCARED_ARGS = ["--dataset_name", "scared", "--datadir", str(SCAN_DIR),
+               "--view_num", "7"]
+FIXTURES = ROOT / "tests" / "data"
 # the CPU parity tests' small shape (tests/test_torch_train.py)
 SMALL_ARGS = ["--dataset_name", "synthetic", "--view_num", "4", "--N_samples",
               "9", "--batch_size", "80", "--patch_size", "4", "--patch_num",
@@ -229,11 +248,18 @@ def ptxas_by_kernel(text: str) -> dict:
 
 
 def phase_build():
+    """Every native source of the path at once: K1 with nvcc, the JPEG
+    decoder with the host compiler."""
+    from concurrent.futures import ThreadPoolExecutor
     from ucnerf_torch.kernels import build
     t0 = time.perf_counter()
-    res = build.build("fused_mlp")
+    names = ("fused_mlp", "jpeg_decode")
+    with ThreadPoolExecutor(len(names)) as pool:
+        res = dict(zip(names, pool.map(build.build, names)))
     log("build", kernel="fused_mlp", seconds=time.perf_counter() - t0,
-        nvcc_seconds=res["seconds"], ptxas=ptxas_by_kernel(res["ptxas"]))
+        nvcc_seconds=res["fused_mlp"]["seconds"],
+        cxx_seconds=res["jpeg_decode"]["seconds"],
+        ptxas=ptxas_by_kernel(res["fused_mlp"]["ptxas"]))
 
 
 def phase_k1(cfg, dev):
@@ -630,17 +656,17 @@ def card_vs_cpu_step(dev) -> dict:
                 grads=grad_envelope(g_card, g_cpu))
 
 
-def run_trainer(name: str, *argv) -> tuple:
-    """One ``ucnerf_torch.train`` run on the bench scene under
-    OUT_DIR/``name``: (summary, JSON lines, wall seconds); its output is
-    kept in OUT_DIR/``name``_stdout.txt."""
+def run_trainer(name: str, *argv, base=TRAIN_ARGS) -> tuple:
+    """One ``ucnerf_torch.train`` run (on the bench scene unless ``base``
+    names another dataset) under OUT_DIR/``name``: (summary, JSON lines,
+    wall seconds); its output is kept in OUT_DIR/``name``_stdout.txt."""
     from ucnerf_torch.train import __main__ as train_cli
 
     buf = io.StringIO()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with bench_scene(), contextlib.redirect_stdout(buf):
-        summary = train_cli.main([*TRAIN_ARGS, "--basedir", str(OUT_DIR),
+        summary = train_cli.main([*base, "--basedir", str(OUT_DIR),
                                   "--expname", name, *argv])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -946,6 +972,315 @@ def phase_train(dev):
     log("train", **res)
     return res
 
+def fabricate_scan(scene: Path, seed: int = 0) -> dict:
+    """A SCARED-layout scan written with the port's own writers: a textured
+    tilted plane about 10 cm away seen by SCAN_FRAMES cameras 2 mm apart at
+    SCAN_WH; frames as PNG (``utils/png.py``), GT depth as 16-bit PNG in
+    millimetres, a DPT ``pred`` npz per frame at SCAN_DPT_WH, a COLMAP
+    ``sparse/0`` of SCAN_POINTS plane points with their tracks, and
+    ``poses_bounds.npy`` from ``gen_poses``.  The loaders take the DPT
+    prior at the frame's path with "images" -> "dpt" and "jpeg" -> "npz",
+    so next to a PNG frame it is an npz archive named ``<stem>.png``."""
+    from ucnerf_torch.data import colmap
+    from ucnerf_torch.data.llff import gen_poses
+    from ucnerf_torch.utils.png import write_png
+
+    rng = np.random.default_rng(seed)
+    W, H = SCAN_WH
+    f = 1100.0
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]])
+    for sub in ("images", "depths", "dpt", "sparse/0"):
+        (scene / sub).mkdir(parents=True, exist_ok=True)
+    # plane z = z0 + a x + b y (metres, world frame = camera 0's)
+    z0, a, b = 0.10, 0.15, -0.08
+
+    def texture(x, y):
+        u, v = 90.0 * x, 90.0 * y
+        r = 0.55 + 0.25 * np.sin(2.1 * u + 0.3) + 0.15 * np.cos(1.3 * v)
+        g = 0.35 + 0.2 * np.sin(1.7 * u + 1.1 * v) + 0.1 * np.cos(2.9 * v)
+        bl = 0.3 + 0.2 * np.cos(1.1 * u - 0.7 * v) + 0.1 * np.sin(3.1 * v)
+        return np.clip(np.stack([r, g, bl], -1), 0.02, 0.98)
+
+    us, vs = np.meshgrid(np.arange(W, dtype=np.float64),
+                         np.arange(H, dtype=np.float64))
+    rays = np.stack([(us - K[0, 2]) / f, (vs - K[1, 2]) / f,
+                     np.ones_like(us)], -1)
+    dus, dvs = np.meshgrid(np.linspace(0, W - 1, SCAN_DPT_WH[0]),
+                           np.linspace(0, H - 1, SCAN_DPT_WH[1]))
+    cams = {1: colmap.Camera(1, "PINHOLE", W, H,
+                             np.array([f, f, W / 2, H / 2]))}
+    # sparse points on the plane, inside the view of every camera
+    px = rng.uniform(-0.035, 0.035, SCAN_POINTS)
+    py = rng.uniform(-0.03, 0.03, SCAN_POINTS)
+    pts = np.stack([px, py, z0 + a * px + b * py], -1)
+    tracks = {pid: ([], []) for pid in range(1, SCAN_POINTS + 1)}
+    images = {}
+    for i in range(SCAN_FRAMES):
+        yaw = 0.01 * np.sin(2 * np.pi * i / SCAN_FRAMES)
+        R = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                      [-np.sin(yaw), 0, np.cos(yaw)]])        # world -> cam
+        t = np.array([-0.002 * (i - SCAN_FRAMES / 2),
+                      0.001 * np.cos(2 * np.pi * i / SCAN_FRAMES), 0.0])
+        c2w_R, center = R.T, -R.T @ t
+        d = rays @ c2w_R.T                                     # world rays
+        hit = ((z0 + a * center[0] + b * center[1] - center[2])
+               / (d[..., 2] - a * d[..., 0] - b * d[..., 1]))  # cam z-depth
+        p = center + hit[..., None] * d
+        stem = f"frame_{i:03d}"
+        write_png(str(scene / "images" / f"{stem}.png"),
+                  (texture(p[..., 0], p[..., 1]) * 255).astype(np.uint8))
+        write_png(str(scene / "depths" / f"{stem}.png"),
+                  np.round(hit * 1000.0).astype(np.uint16))
+        iy, ix = np.round(dvs).astype(int), np.round(dus).astype(int)
+        with open(scene / "dpt" / f"{stem}.png", "wb") as fh:
+            np.savez(fh, pred=(1.0 / hit[iy, ix])[None].astype(np.float32))
+        pc = pts @ R.T + t
+        uv = pc @ K.T
+        uv = uv[:, :2] / uv[:, 2:]
+        seen = ((uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0)
+                & (uv[:, 1] < H) & (pc[:, 2] > 0))
+        pids = np.nonzero(seen)[0] + 1
+        for k, pid in enumerate(pids):
+            tracks[pid][0].append(i + 1)
+            tracks[pid][1].append(k)
+        images[i + 1] = colmap.Image(i + 1, colmap.rotmat2qvec(R), t, 1,
+                                     f"{stem}.png", uv[seen],
+                                     pids.astype(np.int64))
+    points = {pid: colmap.Point3D(pid, pts[pid - 1],
+                                  np.array([128, 128, 128]),
+                                  float(rng.uniform(0.2, 1.5)),
+                                  np.array(tracks[pid][0], np.int32),
+                                  np.array(tracks[pid][1], np.int32))
+              for pid in tracks}
+    colmap.write_model(cams, images, points, str(scene / "sparse" / "0"),
+                       ext=".bin")
+    gen_poses(str(scene))
+    return dict(frames=SCAN_FRAMES, size=list(SCAN_WH),
+                points=SCAN_POINTS,
+                observations=int(sum(len(im.xys) for im in images.values())))
+
+
+def scene_arrays_equal(a: dict, b: dict) -> list:
+    """Names of the scene arrays that differ between two loads."""
+    bad = [k for k in ("images", "depths", "dpt", "c2ws", "w2cs",
+                       "intrinsic", "near_far", "bounds")
+           if not np.array_equal(a[k], b[k])
+           or np.asarray(a[k]).dtype != np.asarray(b[k]).dtype]
+    if len(a["sparse"]) != len(b["sparse"]):
+        return bad + ["sparse"]
+    return bad + [f"sparse{i}_{k}" for i, (e, g) in
+                  enumerate(zip(a["sparse"], b["sparse"]))
+                  for k in ("depth_img", "weight_img", "coords", "depths",
+                            "weights") if not np.array_equal(e[k], g[k])]
+
+
+def load_breakdown(ds, scene: Path) -> dict:
+    """The cold load's parts, timed again one by one over the whole scan
+    (host clock): ms per frame to decode a frame, to resize it (the
+    PIL-bilinear twin) and normalise it, to read and resize the GT depth,
+    to read and resize the DPT prior; seconds to splat the sparse depth of
+    the scan and to write its cache."""
+    import tempfile
+    from ucnerf_torch.data.base import (load_colmap_sparse_depth,
+                                        normalize_image)
+    from ucnerf_torch.data.image_io import read_frame
+    from ucnerf_torch.data.llff import load_poses_bounds
+    from ucnerf_torch.data.resize import pil_bilinear_u8
+
+    frames = sorted((scene / "images").glob("*"))
+    t = dict(decode=0.0, resize=0.0, depth=0.0, dpt=0.0)
+    for p in frames:
+        t0 = time.perf_counter()
+        img = read_frame(str(p))
+        t1 = time.perf_counter()
+        normalize_image(pil_bilinear_u8(img, ds.img_wh).astype(np.float32)
+                        / 255.0)
+        t2 = time.perf_counter()
+        ds._read_gt_depth(str(scene / "depths" / p.name))
+        t3 = time.perf_counter()
+        ds._read_dpt(str(scene / "dpt" / p.name))
+        t4 = time.perf_counter()
+        for k, a, b in (("decode", t0, t1), ("resize", t1, t2),
+                        ("depth", t2, t3), ("dpt", t3, t4)):
+            t[k] += b - a
+    out = {f"{k}_ms_per_frame": v / len(frames) * 1e3 for k, v in t.items()}
+    _, bds = load_poses_bounds(str(scene / "poses_bounds.npy"))
+    t0 = time.perf_counter()
+    load_colmap_sparse_depth(str(scene), ds.img_wh, 1.0 / ds.downsample, bds)
+    out["splat_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=scene) as tmp:
+        t0 = time.perf_counter()
+        ds._save_cache(os.path.join(tmp, "cache.npz"), ds.scene[scene.name],
+                       "timing")
+        out["cache_write_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_jpeg() -> dict:
+    """The committed JPEG fixtures decode to the SHA-256 of PIL's pixels
+    recorded beside them; the 1280x1024 one is timed (host clock)."""
+    import hashlib
+    from ucnerf_torch.utils.jpeg import decode_jpeg
+
+    record = json.loads((FIXTURES / "jpeg_fixtures.json").read_text())
+    digests, ms = {}, None
+    for name, want in record.items():
+        data = (FIXTURES / name).read_bytes()
+        img = decode_jpeg(data, name)
+        digests[name] = hashlib.sha256(img.tobytes()).hexdigest()
+        check(img.shape == (want["height"], want["width"], 3)
+              and digests[name] == want["sha256"],
+              f"JPEG fixture {name}: {img.shape}, digest {digests[name]} "
+              f"is not PIL's {want['sha256']}")
+        if (want["width"], want["height"]) == SCAN_WH:
+            times = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                decode_jpeg(data, name)
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = float(np.median(times))
+    check(ms is not None, "no 1280x1024 JPEG fixture")
+    return dict(fixtures=len(record), digests_equal=True,
+                decode_ms_1280x1024=ms)
+
+
+def phase_scared(dev, tr: dict) -> dict:
+    """Phase scared on a fabricated SCARED-layout scan: (a) the scene
+    loaded cold (decode, resize, splat) and warm from the scene cache, bit
+    for bit; (b) TRAIN_STEPS store-fed steps through ``python -m
+    ucnerf_torch.train --dataset_name scared``, beside phase train's
+    ms/step; (c) ``--eval`` of that checkpoint over the val split on K1
+    (launches = views x tiles, finite PSNR / SSIM and depth metrics
+    against the GT depth), then K1 vs the plain MLP on its first view;
+    (d) one ``serve`` request on the scan, an npz frame; (e) the JPEG
+    fixtures on the card's machine."""
+    from ucnerf_torch import serve
+    from ucnerf_torch.config import parse_config
+    from ucnerf_torch.data import build_dataset
+    from ucnerf_torch.kernels.fused_mlp import fused_nerf_mlp
+    from ucnerf_torch.render.serving import to_device_batch
+    from ucnerf_torch.utils import checkpoint_io
+
+    scan_args = [*SCARED_ARGS, *TRAIN_POINT]
+    cfg = parse_config(scan_args)
+    shutil.rmtree(SCAN_DIR, ignore_errors=True)
+    for name in ("s_train", "s_eval"):
+        shutil.rmtree(OUT_DIR / name, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        made = fabricate_scan(SCAN_DIR / "scene0")
+        fabricate_s = time.perf_counter() - t0
+
+        # (a) cold: no cache on disk; warm: the cache the cold load wrote
+        t0 = time.perf_counter()
+        cold = build_dataset(cfg, "train")
+        cold_s = time.perf_counter() - t0
+        check((SCAN_DIR / "scene0" / "_ucnerf_cache.npz").is_file(),
+              "the cold load wrote no scene cache")
+        t0 = time.perf_counter()
+        warm = build_dataset(cfg, "train")
+        warm_s = time.perf_counter() - t0
+        unequal = scene_arrays_equal(cold.scene["scene0"],
+                                     warm.scene["scene0"])
+        sc = cold.scene["scene0"]
+        n_sparse = [len(e["coords"]) for e in sc["sparse"]]
+        W, H = cold.img_wh
+        check(not unequal, f"warm load differs from the cold one: {unequal}")
+        check(sc["images"].shape == (SCAN_FRAMES, H, W, 3)
+              and (W, H) == tuple(int(x * cold.downsample) for x in SCAN_WH)
+              and sc["depths"].min() > 0
+              and sc["dpt"].min() > 0 and min(n_sparse) > 0,
+              f"scene: {sc['images'].shape}, sparse points {n_sparse}")
+        load = dict(cold_s=cold_s, cold_ms_per_frame=cold_s / SCAN_FRAMES
+                    * 1e3, warm_s=warm_s, fabricate_s=fabricate_s,
+                    sparse_points_per_view=n_sparse, scan=made,
+                    cache_mb=(SCAN_DIR / "scene0" / "_ucnerf_cache.npz")
+                    .stat().st_size / 1e6,
+                    breakdown=load_breakdown(cold, SCAN_DIR / "scene0"))
+
+        # (b) train through the entry point, store-fed, default kernels
+        fused_nerf_mlp.launches = 0
+        summary, lines, wall = run_trainer(
+            "s_train", "--stop_after_steps", str(TRAIN_STEPS),
+            base=scan_args)
+        steps = step_lines(lines)
+        terms = ("loss", "img_mse", "nerf_depth", "mvs", "smooth",
+                 "scaleinv", "psnr")
+        check(len(steps) == TRAIN_STEPS and all(
+            np.isfinite([ln[k] for k in terms]).all() for ln in steps),
+            f"scared train steps not all finite: {steps}")
+        check(any("store_mb" in ln for ln in lines),
+              "the scared run is not store-fed")
+        ms = [ln["ms"] for ln in steps]
+        ckpt = OUT_DIR / "s_train" / "ckpts" / f"step_{TRAIN_STEPS:08d}"
+
+        # (c) --eval over the val split on K1
+        val_ds = build_dataset(cfg, "val")
+        n_tiles = -(-W * H // cfg.chunk)
+        fused_nerf_mlp.launches = 0
+        ev_summary, ev_lines, ev_wall = run_trainer(
+            "s_eval", "--eval", "--ckpt", str(ckpt), "--val_panels", "none",
+            base=scan_args)
+        eval_launches = fused_nerf_mlp.launches
+        [val] = [ln for ln in ev_lines if "val_step" in ln]
+        metrics = ev_summary["val"]
+        check(val["views"] == len(val_ds) == SCAN_FRAMES // 2
+              and eval_launches == len(val_ds) * n_tiles,
+              f"K1 launches {eval_launches} over {val['views']} views, "
+              f"expected {len(val_ds)} x {n_tiles}")
+        check(np.isfinite([metrics[k] for k in metrics if k != "lpips"]
+                          ).all() and len(metrics) == 10,
+              f"scared validation metrics: {metrics}")
+        trained = checkpoint_io.checkpoint_params(str(ckpt))
+        diff, _ = kernel_vs_plain_frame(cfg, trained,
+                                        to_device_batch(val_ds[0], dev),
+                                        (H, W), dev)
+        check(diff["rgb_mean_abs"] <= 5e-3 and diff["depth_mean_rel"] <= 5e-3,
+              f"bf16 kernel scared frame vs plain frame: {diff}")
+
+        # (d) one request through serve's batch mode, with the checkpoint
+        reqs = OUT_DIR / "scared_requests.jsonl"
+        out = OUT_DIR / "scared_frame.npz"
+        c2w = sc["c2ws"][val_ds.metas[0][1]]
+        reqs.write_text(json.dumps({"c2w": np.asarray(c2w).tolist(),
+                                    "out": str(out)}) + "\n")
+        buf = io.StringIO()
+        fused_nerf_mlp.launches = 0
+        with contextlib.redirect_stdout(buf):
+            n = serve.main(["--requests", str(reqs), *SCARED_ARGS,
+                            "--ckpt", str(ckpt)])
+        serve_launches = fused_nerf_mlp.launches
+        serve_summary = json.loads(next(
+            ln for ln in buf.getvalue().splitlines()
+            if ln.startswith('{"frames"')))
+        with np.load(out) as fr:
+            frame = {k: fr[k] for k in ("rgb", "depth", "confidence")}
+        check(n == 1 and serve_launches == 2 * n_tiles    # + warm-up frame
+              and frame["rgb"].shape == (H, W, 3)
+              and all(np.isfinite(v).all() for v in frame.values()),
+              f"scared serve: {n} frames, {serve_launches} launches, "
+              f"{ {k: v.shape for k, v in frame.items()} }")
+
+        jpeg = phase_jpeg()
+    finally:
+        shutil.rmtree(SCAN_DIR, ignore_errors=True)
+        for name in ("s_train", "s_eval"):
+            shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
+    res = dict(load=load, steps=len(steps), step_ms=ms,
+               steady_ms_per_step=float(np.median(ms[2:])),
+               synthetic_steady_ms_per_step=tr["steady_ms_per_step"],
+               synthetic_det_cli_ms_per_step=tr["det_steady_ms_per_step"],
+               train_wall_s=wall, losses=[ln["loss"] for ln in steps],
+               eval_views=val["views"], eval_ms_per_view=val["ms_per_view"],
+               eval_wall_s=ev_wall, eval_metrics=metrics,
+               k1_launches_eval=eval_launches,
+               k1_launches=eval_launches + serve_launches,
+               kernel_vs_plain_val_frame=diff,
+               serve_ms_per_frame=serve_summary["ms_per_frame"],
+               serve_launches=serve_launches, jpeg=jpeg)
+    log("scared", **res)
+    return res
+
 
 def main():
     sys.path.insert(0, str(ROOT))
@@ -968,8 +1303,9 @@ def main():
     hp = phase_http(cfg, dev)
     rp = phase_render_path(cfg)
     tr = phase_train(dev)
+    sd = phase_scared(dev, tr)
     record = {"k1": k1, "serving": sv, "http": hp, "render_path": rp,
-              "train": tr, "nvidia_smi": smi,
+              "train": tr, "scared": sd, "nvidia_smi": smi,
               "seconds": time.perf_counter() - t_start}
     (OUT_DIR / "result.json").write_text(json.dumps(record, indent=1))
     print(smi)
@@ -978,7 +1314,7 @@ def main():
         "source": "ucnerf_torch/csrc/fused_mlp.cu",
         "replaces": "ucnerf_tpu/pallas/mlp_kernel.py:115",
         "launches": (sv["launches"] + hp["launches"] + rp["launches"]
-                     + tr["k1_launches"]),
+                     + tr["k1_launches"] + sd["k1_launches"]),
         "max_abs_err": k1["serving"]["bf16_vs_plain_bf16_max_abs_err"],
         "ms": k1["bf16_ms"], "plain_ms": k1["plain_bf16_ms"],
         "bound_ms": k1["bound_bf16_ms"], "bound_by": k1["bound_by_bf16"],

@@ -37,8 +37,9 @@ def test_serve_imports_with_jax_blocked():
     """The entry points ``ucnerf_torch.serve``, ``ucnerf_torch.train`` and
     ``ucnerf_torch.render_path``, and the modules they load (validation,
     metrics, LPIPS, checkpoints, the device store, writer, prefetcher,
-    profiling, PNG, panels, trajectories), import when importing jax and
-    the image libraries fails."""
+    profiling, PNG, panels, trajectories, the SCARED / Hamlyn / finetune
+    datasets, COLMAP I/O, poses, the JPEG decoder's binding and the resize
+    twins), import when importing jax and the image libraries fails."""
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'optax', 'ucnerf_tpu', 'cv2', 'PIL',"
             " 'imageio', 'matplotlib'):\n"
@@ -53,6 +54,10 @@ def test_serve_imports_with_jax_blocked():
             "import ucnerf_torch.utils.profiling\n"
             "import ucnerf_torch.render_path, ucnerf_torch.utils.png\n"
             "import ucnerf_torch.utils.viz, ucnerf_torch.utils.pose_traj\n"
+            "import ucnerf_torch.data.scared, ucnerf_torch.data.finetune\n"
+            "import ucnerf_torch.data.colmap, ucnerf_torch.data.llff\n"
+            "import ucnerf_torch.data.image_io, ucnerf_torch.data.resize\n"
+            "import ucnerf_torch.utils.jpeg, ucnerf_torch.kernels.build\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

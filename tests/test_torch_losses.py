@@ -26,6 +26,12 @@ from test_torch_train import _draws, _jcfg, _port, case  # noqa: F401
 torch.set_num_threads(1)
 
 RTOL = 1e-5
+# the JAX references compiled whole: op by op, each primitive compiles on
+# its own, which costs more than the one compile
+J_LOSS = {name: jax.jit(getattr(j_loss, name)) for name in (
+    "img2mse", "mse2psnr", "smooth_l1", "cas_mvsnet_loss",
+    "edge_preserving_smoothness", "_compute_scale_and_shift",
+    "gradient_scaleinv_loss")}
 
 
 def _t(a):
@@ -51,18 +57,19 @@ def test_elementwise_losses(rng):
     a = rng.standard_normal((100, 3)).astype(np.float32)
     b = rng.standard_normal((100, 3)).astype(np.float32) * 2
     np.testing.assert_allclose(float(t_loss.img2mse(_t(a), _t(b))),
-                               float(j_loss.img2mse(a, b)), rtol=RTOL)
+                               float(J_LOSS["img2mse"](a, b)), rtol=RTOL)
     for mse in (np.float32(0.0137), np.float32(0.0)):
         np.testing.assert_allclose(float(t_loss.mse2psnr(_t(mse))),
-                                   float(j_loss.mse2psnr(mse)), rtol=RTOL)
+                                   float(J_LOSS["mse2psnr"](mse)), rtol=RTOL)
     np.testing.assert_allclose(t_loss.smooth_l1(_t(a), _t(b)).numpy(),
-                               np.asarray(j_loss.smooth_l1(a, b)), rtol=RTOL)
+                               np.asarray(J_LOSS["smooth_l1"](a, b)),
+                               rtol=RTOL)
 
 
 def test_cas_mvsnet_loss(rng):
     est, gt, wt = _stage_maps(rng)
-    j = j_loss.cas_mvsnet_loss({k: {"depth": v} for k, v in est.items()},
-                               gt, wt)
+    j = J_LOSS["cas_mvsnet_loss"](
+        {k: {"depth": v} for k, v in est.items()}, gt, wt)
     t = t_loss.cas_mvsnet_loss({k: {"depth": _t(v)} for k, v in est.items()},
                                {k: _t(v) for k, v in gt.items()},
                                {k: _t(v) for k, v in wt.items()})
@@ -74,7 +81,7 @@ def test_edge_preserving_smoothness(rng):
     w = rng.standard_normal((6, 5, 5, 1)).astype(np.float32) * 0.1
     np.testing.assert_allclose(
         float(t_loss.edge_preserving_smoothness(_t(d), _t(w))),
-        float(j_loss.edge_preserving_smoothness(d, w)), rtol=RTOL)
+        float(J_LOSS["edge_preserving_smoothness"](d, w)), rtol=RTOL)
 
 
 @pytest.mark.parametrize("degenerate", [False, True])
@@ -88,7 +95,7 @@ def test_scale_shift_and_gradient_loss(rng, degenerate):
     mask = (rng.uniform(size=(6, 5, 5)) < 0.8).astype(np.float32)
     s_t, t_t = t_loss._compute_scale_and_shift(_t(pred), _t(target),
                                                _t(mask))
-    s_j, t_j = j_loss._compute_scale_and_shift(pred, target, mask)
+    s_j, t_j = J_LOSS["_compute_scale_and_shift"](pred, target, mask)
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=RTOL,
                                atol=1e-6)
     np.testing.assert_allclose(t_t.numpy(), np.asarray(t_j), rtol=RTOL,
@@ -97,7 +104,7 @@ def test_scale_shift_and_gradient_loss(rng, degenerate):
         np.testing.assert_allclose(
             float(t_loss.gradient_scaleinv_loss(
                 _t(pred), _t(target), None if m is None else _t(m))),
-            float(j_loss.gradient_scaleinv_loss(pred, target, m)),
+            float(J_LOSS["gradient_scaleinv_loss"](pred, target, m)),
             rtol=RTOL)
 
 

@@ -90,23 +90,27 @@ def case():
     inp["jitter"] = np.asarray(jax.random.uniform(jax.random.PRNGKey(1),
                                                   (40, S)))
 
+    # every reference compiled whole: op-by-op dispatch compiles every op
+    # on its own
     j = {}
-    j["pe"] = j_pe.positional_encoding(jnp.asarray(inp["x"]), 4)
-    j["composite"] = j_comp.raw2outputs(inp["raw"], inp["z"], True)
-    j["dist"] = j_comp.depth2dist(inp["z"], inp["cos"])
-    # compiled whole: op-by-op dispatch compiles every op on its own
+    j["pe"] = jax.jit(j_pe.positional_encoding, static_argnums=1)(
+        jnp.asarray(inp["x"]), 4)
+    j["composite"] = jax.jit(j_comp.raw2outputs, static_argnums=2)(
+        inp["raw"], inp["z"], True)
+    j["dist"] = jax.jit(j_comp.depth2dist)(inp["z"], inp["cos"])
     j["bilinear"] = jax.jit(j_interp.resize_bilinear, static_argnums=1)(
         inp["img"], (H, W))
     j["trilinear"] = jax.jit(j_interp.resize_trilinear, static_argnums=1)(
         inp["vol"], (4, H, W))
-    j["nearest"] = j_interp.upsample2x_nearest(inp["img"])
-    common = dict(H=H, W=W, intrinsic=K, c2w=c2ws[0], w2c_ref=w2cs[0],
+    j["nearest"] = jax.jit(j_interp.upsample2x_nearest)(inp["img"])
+    common = dict(intrinsic=K, c2w=c2ws[0], w2c_ref=w2cs[0],
                   intrinsic_ref=K, near_ref=near, far_ref=far,
-                  stage_planes=planes, n_samples=S)
-    j["rays"] = j_rays.build_test_rays(jnp.asarray(pix), **common)
+                  stage_planes=planes)
+    j["rays"] = jax.jit(lambda p, c: j_rays.build_test_rays(
+        p, H=H, W=W, n_samples=S, **c))(jnp.asarray(pix), common)
     nf = j["rays"]["stage_near_far"]
-    j["cands"] = j_samp.stratified_jitter(
-        j_samp.stage_depth_candidates(nf, S), jax.random.PRNGKey(1))
+    j["cands"] = jax.jit(lambda nf, key: j_samp.stratified_jitter(
+        j_samp.stage_depth_candidates(nf, S), key))(nf, jax.random.PRNGKey(1))
     j["warp"] = jax.jit(lambda: j_warp.homo_warp(
         inp["feat"][0], inp["projs"][0], inp["depth_vals"], pad=1))()
     j["variance"] = jax.jit(lambda: j_mvs._variance_cost_volume(

@@ -87,12 +87,27 @@ def test_all_five_row_filters(name):
     np.testing.assert_array_equal(decode_png(data), img)
 
 
+@pytest.mark.parametrize("mode", ["RGBA", "L"])
+def test_we_read_pils_rgba_and_gray8(mode):
+    """The two types only ``decode_png`` reads (dataset frames may be RGBA,
+    depth maps 8-bit gray): PIL's files, adaptive row filters and all."""
+    rng = np.random.default_rng(1)
+    shape = (19, 27, 4) if mode == "RGBA" else (19, 27)
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img, mode).save(buf, format="png")
+    got = decode_png(buf.getvalue())
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, img)
+
+
 def test_refuses_other_types_and_damage():
     with pytest.raises(ValueError, match="uint8"):
         encode_png(np.zeros((4, 4), np.uint8))
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((4, 4, 4), np.uint8)).save(buf, format="png")
-    with pytest.raises(ValueError, match="colour type 6"):
+    Image.fromarray(np.zeros((4, 4, 2), np.uint8), "LA").save(buf,
+                                                             format="png")
+    with pytest.raises(ValueError, match="colour type 4"):
         decode_png(buf.getvalue())
     data = bytearray(encode_png(np.zeros((4, 5, 3), np.uint8)))
     data[40] ^= 1                       # inside the IDAT chunk

@@ -105,7 +105,7 @@ def test_adam_matches_optax(case, finetune):
     spe = 1                      # the cosine LR moves every update
     tx = j_loop.make_optimizer(_jcfg(cfg), spe)
     jp = jax.tree.map(jnp.asarray, case["jparams"])
-    opt_state = tx.init(jp)
+    opt_state = jax.jit(tx.init)(jp)     # one compile, not one per shape
     nerf, mvs = _port(cfg, case["params"])
     opt = t_loop.make_optimizer(cfg, nerf, mvs)
     sched = t_loop.make_lr_schedule(cfg, spe)

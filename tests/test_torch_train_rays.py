@@ -2,6 +2,8 @@
 draws JAX makes from one key: the Gumbel top-k patch draw, the patch
 pixels and the whole [patches | uniform | sparse-depth] batch."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,17 @@ def jax_train_draws(key, *, H, W, patch_size, patch_num, n_uniform, n_rays,
                     n_samples):
     """The draws ``ucnerf_tpu.ops.rays.build_train_rays`` makes from
     ``key``, through its key splits (``rays.py:164``, ``:75``, ``:169``)
-    and the jitter's (``ops/sampling.py:33``), as a port ``TrainDraws``."""
+    and the jitter's (``ops/sampling.py:33``), as a port ``TrainDraws``.
+    Compiled once per shape: op by op, each random primitive compiles on
+    its own."""
+    return t_rays.TrainDraws(*(
+        torch.from_numpy(np.array(a)) for a in _jax_draws(
+            key, H, W, patch_size, patch_num, n_uniform, n_rays, n_samples)))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6, 7))
+def _jax_draws(key, H, W, patch_size, patch_num, n_uniform, n_rays,
+               n_samples):
     k1, k2, k3, kd = jax.random.split(key, 4)
     gumbel, shifts = [], []
     for k in (k1, k2):
@@ -36,9 +48,7 @@ def jax_train_draws(key, *, H, W, patch_size, patch_num, n_uniform, n_rays,
     ys = jax.random.randint(ku_y, (n_uniform,), 0, H)
     jitter = jax.random.uniform(kd, (n_rays, 3 * (n_samples // 3)),
                                 dtype=jnp.float32)
-    return t_rays.TrainDraws(*(
-        torch.from_numpy(np.array(a)) for a in
-        (jnp.stack(gumbel), jnp.stack(shifts), xs, ys, jitter)))
+    return jnp.stack(gumbel), jnp.stack(shifts), xs, ys, jitter
 
 
 def _inputs(seed=0):
@@ -85,10 +95,11 @@ def test_build_train_rays_matches_jax(jitter):
     inp = _inputs()
     key = jax.random.PRNGKey(7)
     n_rays = PN * PS * PS + N_UNIFORM + N_DEPTH
-    j = j_rays.build_train_rays(
+    j = jax.jit(functools.partial(
+        j_rays.build_train_rays, patch_size=PS, patch_num=PN,
+        n_uniform=N_UNIFORM, n_samples=S, jitter=jitter))(
         key, **_to(inp, jnp.asarray), w2c_ref=jnp.eye(4),
-        intrinsic_ref=jnp.asarray(inp["intrinsic"]), patch_size=PS,
-        patch_num=PN, n_uniform=N_UNIFORM, n_samples=S, jitter=jitter)
+        intrinsic_ref=jnp.asarray(inp["intrinsic"]))
     draws = jax_train_draws(key, H=H, W=W, patch_size=PS, patch_num=PN,
                             n_uniform=N_UNIFORM, n_rays=n_rays, n_samples=S)
     t = t_rays.build_train_rays(

@@ -19,8 +19,8 @@ and fixed-shape:
   view_ids          (V,) int32
   scan_idx          () int32
 
-The pyramids use plain nearest slicing (``make_stage_pyramid``), which
-equals the legacy nearest resize for the integer factors 2 and 4.
+The pyramids follow cv2's ``INTER_NEAREST`` index law
+(``make_stage_pyramid``), as the JAX package builds them.
 """
 
 from __future__ import annotations
@@ -30,7 +30,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ucnerf_torch.data import colmap
 from ucnerf_torch.data.llff import get_nearest_pose_ids
+from ucnerf_torch.data.resize import cv2_nearest_size
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -44,12 +46,72 @@ def unnormalize_image(img):
     return img * IMAGENET_STD + IMAGENET_MEAN
 
 
+def load_colmap_sparse_depth(scene_dir, img_wh, factor, bds_raw,
+                             bd_factor=0.75):
+    """Project COLMAP 3D points into every image -> per-image sparse depth
+    (``ucnerf_tpu.data.base.load_colmap_sparse_depth``).
+
+    depth = c2w_z . (pt - cam_center), scaled by 1/(bds.min()*bd_factor);
+    points outside that image's raw bounds are dropped; weight =
+    2*exp(-(err/err_mean)^2); splat at (y, x) = point2D[::-1]/factor
+    (integer truncation).  Entries are returned sorted by image name, and
+    ``bds_raw`` rows are taken in that order (LLFF's save order).
+    """
+    images = colmap.read_images_binary(
+        os.path.join(scene_dir, "sparse", "0", "images.bin"))
+    points = colmap.read_points3d_binary(
+        os.path.join(scene_dir, "sparse", "0", "points3D.bin"))
+    errs = np.array([p.error for p in points.values()])
+    err_mean = errs.mean()
+    sc = 1.0 / (bds_raw.min() * bd_factor)
+
+    w_img, h_img = img_wh
+    entries = []
+    order = sorted(images.keys(), key=lambda i: images[i].name)
+    for k, img_id in enumerate(order):
+        im = images[img_id]
+        R = colmap.qvec2rotmat(im.qvec)
+        t = im.tvec
+        c2w_R = R.T
+        center = -R.T @ t
+        depth_img = np.zeros((h_img, w_img), np.float32)
+        weight_img = np.zeros((h_img, w_img), np.float32)
+        coords, depths, weights = [], [], []
+        lo, hi = bds_raw[k] * sc if bds_raw.ndim == 2 else bds_raw * sc
+        for xy, pid in zip(im.xys, im.point3D_ids):
+            if pid == -1 or pid not in points:
+                continue
+            pt = points[pid]
+            depth = float(c2w_R[:, 2] @ (pt.xyz - center)) * sc
+            if depth < lo or depth > hi:
+                continue
+            weight = 2.0 * np.exp(-(pt.error / err_mean) ** 2)
+            h = int(xy[1] / factor)
+            w = int(xy[0] / factor)
+            if w >= w_img or h >= h_img:
+                continue
+            depth_img[h, w] = depth
+            weight_img[h, w] = weight
+            coords.append((h, w))
+            depths.append(depth)
+            weights.append(weight)
+        entries.append(dict(
+            name=im.name,
+            depth_img=depth_img, weight_img=weight_img,
+            coords=np.array(coords, np.int32).reshape(-1, 2),
+            depths=np.array(depths, np.float32),
+            weights=np.array(weights, np.float32)))
+    entries.sort(key=lambda e: e["name"])
+    return entries
+
+
 def make_stage_pyramid(img):
-    """/4, /2, /1 nearest pyramid: ``src = floor(dst * in / out)``, which
-    for an integer factor f is every f-th pixel starting at 0."""
+    """/4, /2, /1 nearest pyramid at (w // f, h // f), as
+    ``cv2.resize(img, (w // f, h // f), INTER_NEAREST)``: ``src =
+    floor(dst * in / out)``, every f-th pixel where the size divides by f."""
     h, w = img.shape
-    return {"stage1": img[:h // 4 * 4:4, :w // 4 * 4:4],
-            "stage2": img[:h // 2 * 2:2, :w // 2 * 2:2],
+    return {"stage1": cv2_nearest_size(img, (w // 4, h // 4)),
+            "stage2": cv2_nearest_size(img, (w // 2, h // 2)),
             "stage3": img}
 
 
@@ -93,6 +155,9 @@ class SceneDataset:
     def _discover_scans(self) -> List[str]:
         return sorted(d for d in os.listdir(self.datadir)
                       if os.path.isdir(os.path.join(self.datadir, d)))
+
+    def _scene_dir(self, scan):
+        return os.path.join(self.datadir, scan)
 
     def _load_scene(self, scan) -> dict:
         raise NotImplementedError

@@ -1,8 +1,8 @@
 """Novel views along a camera trajectory: the port of ``render_path.py``.
 
-    python -m ucnerf_torch.render_path --dataset_name synthetic \
-        --img_wh 320 256 --view_num 7 --traj interp --n_frames 30 \
-        --out frames.npz
+    python -m ucnerf_torch.render_path --dataset_name scared \
+        --datadir data/scared --view_num 7 --ckpt params.npz \
+        --traj interp --n_frames 30 --out frames.npz
 
 The source views are those of the val split's first sample; the
 trajectory (``utils/pose_traj.py``: ``spiral``, ``euler``, ``interp``,

@@ -7,8 +7,8 @@ the card the NeRF MLP runs as the hand-written kernel
 
 HTTP mode:
 
-    python -m ucnerf_torch.serve --dataset_name synthetic --img_wh 320 256 \
-        --view_num 7 --port 8080
+    python -m ucnerf_torch.serve --dataset_name scared --datadir data/scared \
+        --view_num 7 --ckpt logs/scared/ckpts/step_00005000 --port 8080
     curl -s localhost:8080/health
     curl -s -X POST --data-binary @req.json localhost:8080/render > f.npz
     # req.json: {"c2w": [[...4x4...]], "format": "npz" | "png"}

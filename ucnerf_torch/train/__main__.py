@@ -1,6 +1,8 @@
 """Train UC-NeRF with the port: the serial single-device path of the JAX
 package's ``train.py::main``.
 
+    python -m ucnerf_torch.train --preset train_scared --datadir data/scared
+    python -m ucnerf_torch.train --preset train_hamlyn --datadir data/hamlyn
     python -m ucnerf_torch.train --dataset_name synthetic --img_wh 320 256 \
         --view_num 7 --num_epochs 30
     python -m ucnerf_torch.train ... --ckpt logs/scared/ckpts/step_00005000

@@ -1,10 +1,11 @@
-"""PNG files with ``zlib`` alone: 8-bit RGB and 16-bit gray.
+"""PNG files with ``zlib`` alone.
 
 The card's machine has no image library, so frames, validation panels and
-(later) the datasets' PNG images go through this module.  ``encode_png``
-writes one IDAT chunk of unfiltered rows, non-interlaced.  ``decode_png``
-reads the same two types as any encoder writes them: any number of IDAT
-chunks and all five row filters (None, Sub, Up, Average, Paeth).
+the datasets' PNG frames and depth maps go through this module.
+``encode_png`` writes 8-bit RGB and 16-bit gray as one IDAT chunk of
+unfiltered rows, non-interlaced.  ``decode_png`` reads 8-bit RGB, 8-bit
+RGBA, 8-bit gray and 16-bit gray as any encoder writes them: any number
+of IDAT chunks and all five row filters (None, Sub, Up, Average, Paeth).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # (bit depth, colour type) -> (channels, numpy dtype of a sample)
-_TYPES = {(8, 2): (3, np.dtype(np.uint8)), (16, 0): (1, np.dtype(">u2"))}
+_TYPES = {(8, 2): (3, np.dtype(np.uint8)), (16, 0): (1, np.dtype(">u2")),
+          (8, 6): (4, np.dtype(np.uint8)), (8, 0): (1, np.dtype(np.uint8))}
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -89,8 +91,9 @@ def _unfilter(raw: np.ndarray, H: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> [H, W, 3] uint8 (8-bit RGB) or [H, W] uint16 (16-bit
-    gray).  Other colour types, bit depths and interlaced files raise."""
+    """PNG bytes -> [H, W, 3] uint8 (8-bit RGB), [H, W, 4] uint8 (8-bit
+    RGBA), [H, W] uint8 (8-bit gray) or [H, W] uint16 (16-bit gray).  Other
+    colour types, bit depths and interlaced files raise."""
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file (bad signature)")
     pos, header, idat = 8, None, []
@@ -111,9 +114,10 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG file without IHDR or IDAT")
     W, H, depth, ctype, _, _, interlace = header
     if (depth, ctype) not in _TYPES or interlace:
-        raise ValueError(f"decode_png reads 8-bit RGB and 16-bit gray, "
-                         f"non-interlaced; got bit depth {depth}, colour "
-                         f"type {ctype}, interlace {interlace}")
+        raise ValueError(f"decode_png reads 8-bit RGB, RGBA and gray and "
+                         f"16-bit gray, non-interlaced; got bit depth "
+                         f"{depth}, colour type {ctype}, interlace "
+                         f"{interlace}")
     channels, dtype = _TYPES[depth, ctype]
     bpp = channels * dtype.itemsize
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
@@ -122,7 +126,7 @@ def decode_png(data: bytes) -> np.ndarray:
                          f"{H * (1 + W * bpp)}")
     img = _unfilter(raw.reshape(H, 1 + W * bpp), H, W * bpp, bpp)
     img = img.view(dtype).astype(dtype.newbyteorder("="))
-    return img.reshape(H, W, 3) if channels == 3 else img.reshape(H, W)
+    return img.reshape(H, W, channels) if channels > 1 else img.reshape(H, W)
 
 
 def read_png(path: str) -> np.ndarray:
