@@ -12,22 +12,29 @@ SCARED-layout scan at 1280x1024 with the port's own writers, loads it cold
 and warm through the scene cache, trains 12 steps on it through ``python
 -m ucnerf_torch.train --dataset_name scared``, evaluates the checkpoint
 over its val split on K1, serves one request from it, and decodes the
-committed JPEG fixtures to their recorded digests.  Which parts of a train
+committed JPEG fixtures to their recorded digests.  Phase ``preprocess``
+converts seeded DPT-Hybrid and LPIPS weights through ``python -m
+ucnerf_torch.convert_weights``, runs ``python -m ucnerf_torch.preprocess
+dpt`` over that scan in f32 and bf16 and ``seg`` on two of its frames,
+holds the card's DPT against its CPU forward, and evaluates the scan's
+checkpoint with the converted LPIPS weights.  Which parts of a train
 step vary run to run on the card's default kernels is measured on demand
-by ``scripts/determinism_probe.py``.
+by ``scripts/determinism_probe.py``, the DPT forward's backend settings
+by ``scripts/dpt_probe.py``.
 
     python3 chip_smoke.py
 
 Phases (one line each): device, build, k1 (K1 vs plain), serving, http,
-render_path, resume, panels, store_vs_host, train, scared.  Any failed check
-raises, so the script exits non-zero and prints no result.  Before the
-last line it prints the card's ``nvidia-smi`` name and power limit and one
-JSON line with every kernel of the main path (K1's launches summed over
-serving, HTTP, render_path, the eval and phase scared's eval and request);
-the last line is ``{"ok": true,
-"device": {...}}``.  Frames, panels, the trainer runs' stdout and
-directories (their checkpoints are deleted once checked), profiles and a
-JSON record go to ``chiprun_out/chip_smoke/`` beside this file.
+render_path, resume, panels, store_vs_host, train, scared, preprocess.
+Any failed check raises, so the script exits non-zero and prints no
+result.  Before the last line it prints the card's ``nvidia-smi`` name and
+power limit and one JSON line with every kernel of the main path (K1's
+launches summed over serving, HTTP, render_path, the eval, phase scared's
+eval and request, and phase preprocess's eval); the last line is
+``{"ok": true, "device": {...}}``.  Frames, panels, the trainer runs'
+stdout and directories (their checkpoints are deleted once checked),
+profiles and a JSON record go to ``chiprun_out/chip_smoke/`` beside this
+file.
 """
 
 from __future__ import annotations
@@ -88,7 +95,19 @@ SCAN_DPT_WH = (480, 384)     # the DPT prior's size (not 320x256)
 SCAN_POINTS = 4000
 SCARED_ARGS = ["--dataset_name", "scared", "--datadir", str(SCAN_DIR),
                "--view_num", "7"]
+SCAN_ARGS = [*SCARED_ARGS, *TRAIN_POINT]      # the scan at the train point
 FIXTURES = ROOT / "tests" / "data"
+# phase preprocess: seeded weights under their published names, converted
+# by python -m ucnerf_torch.convert_weights, then python -m
+# ucnerf_torch.preprocess over phase scared's scan; deleted at the end
+PRE_DIR = OUT_DIR.parent / "preprocess"
+SEG_FRAMES = 2
+# the card's f32 DPT (TF32 off) against the port's own CPU forward of the
+# same weights and input, rel-to-max of the trunk and of the inverse depth
+DPT_CPU_TOL = 1e-3
+# the card's bf16 trunk against its f32 trunk: the JAX package's bound on
+# its bf16 trunk (tests/test_dpt.py:176)
+DPT_BF16_TOL = 6e-2
 # the CPU parity tests' small shape (tests/test_torch_train.py)
 SMALL_ARGS = ["--dataset_name", "synthetic", "--view_num", "4", "--N_samples",
               "9", "--batch_size", "80", "--patch_size", "4", "--patch_num",
@@ -1161,111 +1180,105 @@ def phase_scared(dev, tr: dict) -> dict:
     from ucnerf_torch.render.serving import to_device_batch
     from ucnerf_torch.utils import checkpoint_io
 
-    scan_args = [*SCARED_ARGS, *TRAIN_POINT]
-    cfg = parse_config(scan_args)
+    cfg = parse_config(SCAN_ARGS)
     shutil.rmtree(SCAN_DIR, ignore_errors=True)
     for name in ("s_train", "s_eval"):
         shutil.rmtree(OUT_DIR / name, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        made = fabricate_scan(SCAN_DIR / "scene0")
-        fabricate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    made = fabricate_scan(SCAN_DIR / "scene0")
+    fabricate_s = time.perf_counter() - t0
 
-        # (a) cold: no cache on disk; warm: the cache the cold load wrote
-        t0 = time.perf_counter()
-        cold = build_dataset(cfg, "train")
-        cold_s = time.perf_counter() - t0
-        check((SCAN_DIR / "scene0" / "_ucnerf_cache.npz").is_file(),
-              "the cold load wrote no scene cache")
-        t0 = time.perf_counter()
-        warm = build_dataset(cfg, "train")
-        warm_s = time.perf_counter() - t0
-        unequal = scene_arrays_equal(cold.scene["scene0"],
-                                     warm.scene["scene0"])
-        sc = cold.scene["scene0"]
-        n_sparse = [len(e["coords"]) for e in sc["sparse"]]
-        W, H = cold.img_wh
-        check(not unequal, f"warm load differs from the cold one: {unequal}")
-        check(sc["images"].shape == (SCAN_FRAMES, H, W, 3)
-              and (W, H) == tuple(int(x * cold.downsample) for x in SCAN_WH)
-              and sc["depths"].min() > 0
-              and sc["dpt"].min() > 0 and min(n_sparse) > 0,
-              f"scene: {sc['images'].shape}, sparse points {n_sparse}")
-        load = dict(cold_s=cold_s, cold_ms_per_frame=cold_s / SCAN_FRAMES
-                    * 1e3, warm_s=warm_s, fabricate_s=fabricate_s,
-                    sparse_points_per_view=n_sparse, scan=made,
-                    cache_mb=(SCAN_DIR / "scene0" / "_ucnerf_cache.npz")
-                    .stat().st_size / 1e6,
-                    breakdown=load_breakdown(cold, SCAN_DIR / "scene0"))
+    # (a) cold: no cache on disk; warm: the cache the cold load wrote
+    t0 = time.perf_counter()
+    cold = build_dataset(cfg, "train")
+    cold_s = time.perf_counter() - t0
+    check((SCAN_DIR / "scene0" / "_ucnerf_cache.npz").is_file(),
+          "the cold load wrote no scene cache")
+    t0 = time.perf_counter()
+    warm = build_dataset(cfg, "train")
+    warm_s = time.perf_counter() - t0
+    unequal = scene_arrays_equal(cold.scene["scene0"],
+                                 warm.scene["scene0"])
+    sc = cold.scene["scene0"]
+    n_sparse = [len(e["coords"]) for e in sc["sparse"]]
+    W, H = cold.img_wh
+    check(not unequal, f"warm load differs from the cold one: {unequal}")
+    check(sc["images"].shape == (SCAN_FRAMES, H, W, 3)
+          and (W, H) == tuple(int(x * cold.downsample) for x in SCAN_WH)
+          and sc["depths"].min() > 0
+          and sc["dpt"].min() > 0 and min(n_sparse) > 0,
+          f"scene: {sc['images'].shape}, sparse points {n_sparse}")
+    load = dict(cold_s=cold_s, cold_ms_per_frame=cold_s / SCAN_FRAMES
+                * 1e3, warm_s=warm_s, fabricate_s=fabricate_s,
+                sparse_points_per_view=n_sparse, scan=made,
+                cache_mb=(SCAN_DIR / "scene0" / "_ucnerf_cache.npz")
+                .stat().st_size / 1e6,
+                breakdown=load_breakdown(cold, SCAN_DIR / "scene0"))
 
-        # (b) train through the entry point, store-fed, default kernels
-        fused_nerf_mlp.launches = 0
-        summary, lines, wall = run_trainer(
-            "s_train", "--stop_after_steps", str(TRAIN_STEPS),
-            base=scan_args)
-        steps = step_lines(lines)
-        terms = ("loss", "img_mse", "nerf_depth", "mvs", "smooth",
-                 "scaleinv", "psnr")
-        check(len(steps) == TRAIN_STEPS and all(
-            np.isfinite([ln[k] for k in terms]).all() for ln in steps),
-            f"scared train steps not all finite: {steps}")
-        check(any("store_mb" in ln for ln in lines),
-              "the scared run is not store-fed")
-        ms = [ln["ms"] for ln in steps]
-        ckpt = OUT_DIR / "s_train" / "ckpts" / f"step_{TRAIN_STEPS:08d}"
+    # (b) train through the entry point, store-fed, default kernels
+    fused_nerf_mlp.launches = 0
+    summary, lines, wall = run_trainer(
+        "s_train", "--stop_after_steps", str(TRAIN_STEPS),
+        base=SCAN_ARGS)
+    steps = step_lines(lines)
+    terms = ("loss", "img_mse", "nerf_depth", "mvs", "smooth",
+             "scaleinv", "psnr")
+    check(len(steps) == TRAIN_STEPS and all(
+        np.isfinite([ln[k] for k in terms]).all() for ln in steps),
+        f"scared train steps not all finite: {steps}")
+    check(any("store_mb" in ln for ln in lines),
+          "the scared run is not store-fed")
+    ms = [ln["ms"] for ln in steps]
+    ckpt = OUT_DIR / "s_train" / "ckpts" / f"step_{TRAIN_STEPS:08d}"
 
-        # (c) --eval over the val split on K1
-        val_ds = build_dataset(cfg, "val")
-        n_tiles = -(-W * H // cfg.chunk)
-        fused_nerf_mlp.launches = 0
-        ev_summary, ev_lines, ev_wall = run_trainer(
-            "s_eval", "--eval", "--ckpt", str(ckpt), "--val_panels", "none",
-            base=scan_args)
-        eval_launches = fused_nerf_mlp.launches
-        [val] = [ln for ln in ev_lines if "val_step" in ln]
-        metrics = ev_summary["val"]
-        check(val["views"] == len(val_ds) == SCAN_FRAMES // 2
-              and eval_launches == len(val_ds) * n_tiles,
-              f"K1 launches {eval_launches} over {val['views']} views, "
-              f"expected {len(val_ds)} x {n_tiles}")
-        check(np.isfinite([metrics[k] for k in metrics if k != "lpips"]
-                          ).all() and len(metrics) == 10,
-              f"scared validation metrics: {metrics}")
-        trained = checkpoint_io.checkpoint_params(str(ckpt))
-        diff, _ = kernel_vs_plain_frame(cfg, trained,
-                                        to_device_batch(val_ds[0], dev),
-                                        (H, W), dev)
-        check(diff["rgb_mean_abs"] <= 5e-3 and diff["depth_mean_rel"] <= 5e-3,
-              f"bf16 kernel scared frame vs plain frame: {diff}")
+    # (c) --eval over the val split on K1
+    val_ds = build_dataset(cfg, "val")
+    n_tiles = -(-W * H // cfg.chunk)
+    fused_nerf_mlp.launches = 0
+    ev_summary, ev_lines, ev_wall = run_trainer(
+        "s_eval", "--eval", "--ckpt", str(ckpt), "--val_panels", "none",
+        base=SCAN_ARGS)
+    eval_launches = fused_nerf_mlp.launches
+    [val] = [ln for ln in ev_lines if "val_step" in ln]
+    metrics = ev_summary["val"]
+    check(val["views"] == len(val_ds) == SCAN_FRAMES // 2
+          and eval_launches == len(val_ds) * n_tiles,
+          f"K1 launches {eval_launches} over {val['views']} views, "
+          f"expected {len(val_ds)} x {n_tiles}")
+    check(np.isfinite([metrics[k] for k in metrics if k != "lpips"]
+                      ).all() and len(metrics) == 10,
+          f"scared validation metrics: {metrics}")
+    trained = checkpoint_io.checkpoint_params(str(ckpt))
+    diff, _ = kernel_vs_plain_frame(cfg, trained,
+                                    to_device_batch(val_ds[0], dev),
+                                    (H, W), dev)
+    check(diff["rgb_mean_abs"] <= 5e-3 and diff["depth_mean_rel"] <= 5e-3,
+          f"bf16 kernel scared frame vs plain frame: {diff}")
 
-        # (d) one request through serve's batch mode, with the checkpoint
-        reqs = OUT_DIR / "scared_requests.jsonl"
-        out = OUT_DIR / "scared_frame.npz"
-        c2w = sc["c2ws"][val_ds.metas[0][1]]
-        reqs.write_text(json.dumps({"c2w": np.asarray(c2w).tolist(),
-                                    "out": str(out)}) + "\n")
-        buf = io.StringIO()
-        fused_nerf_mlp.launches = 0
-        with contextlib.redirect_stdout(buf):
-            n = serve.main(["--requests", str(reqs), *SCARED_ARGS,
-                            "--ckpt", str(ckpt)])
-        serve_launches = fused_nerf_mlp.launches
-        serve_summary = json.loads(next(
-            ln for ln in buf.getvalue().splitlines()
-            if ln.startswith('{"frames"')))
-        with np.load(out) as fr:
-            frame = {k: fr[k] for k in ("rgb", "depth", "confidence")}
-        check(n == 1 and serve_launches == 2 * n_tiles    # + warm-up frame
-              and frame["rgb"].shape == (H, W, 3)
-              and all(np.isfinite(v).all() for v in frame.values()),
-              f"scared serve: {n} frames, {serve_launches} launches, "
-              f"{ {k: v.shape for k, v in frame.items()} }")
+    # (d) one request through serve's batch mode, with the checkpoint
+    reqs = OUT_DIR / "scared_requests.jsonl"
+    out = OUT_DIR / "scared_frame.npz"
+    c2w = sc["c2ws"][val_ds.metas[0][1]]
+    reqs.write_text(json.dumps({"c2w": np.asarray(c2w).tolist(),
+                                "out": str(out)}) + "\n")
+    buf = io.StringIO()
+    fused_nerf_mlp.launches = 0
+    with contextlib.redirect_stdout(buf):
+        n = serve.main(["--requests", str(reqs), *SCARED_ARGS,
+                        "--ckpt", str(ckpt)])
+    serve_launches = fused_nerf_mlp.launches
+    serve_summary = json.loads(next(
+        ln for ln in buf.getvalue().splitlines()
+        if ln.startswith('{"frames"')))
+    with np.load(out) as fr:
+        frame = {k: fr[k] for k in ("rgb", "depth", "confidence")}
+    check(n == 1 and serve_launches == 2 * n_tiles    # + warm-up frame
+          and frame["rgb"].shape == (H, W, 3)
+          and all(np.isfinite(v).all() for v in frame.values()),
+          f"scared serve: {n} frames, {serve_launches} launches, "
+          f"{ {k: v.shape for k, v in frame.items()} }")
 
-        jpeg = phase_jpeg()
-    finally:
-        shutil.rmtree(SCAN_DIR, ignore_errors=True)
-        for name in ("s_train", "s_eval"):
-            shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
+    jpeg = phase_jpeg()
     res = dict(load=load, steps=len(steps), step_ms=ms,
                steady_ms_per_step=float(np.median(ms[2:])),
                synthetic_steady_ms_per_step=tr["steady_ms_per_step"],
@@ -1277,8 +1290,258 @@ def phase_scared(dev, tr: dict) -> dict:
                k1_launches=eval_launches + serve_launches,
                kernel_vs_plain_val_frame=diff,
                serve_ms_per_frame=serve_summary["ms_per_frame"],
-               serve_launches=serve_launches, jpeg=jpeg)
+               serve_launches=serve_launches, jpeg=jpeg, ckpt=str(ckpt))
     log("scared", **res)
+    return res
+
+
+def rel_to_max(got, want) -> float:
+    """Max abs difference over the max abs of ``want``."""
+    got, want = (torch.as_tensor(a).float().cpu() for a in (got, want))
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def dpt_work(params, x) -> tuple:
+    """(FLOPs, bytes) of one ``dpt_forward`` of ``x``: the FLOPs of its
+    convolutions and matrix products from their shapes (torch's
+    ``FlopCounterMode``; norms, resizes and activations not counted), the
+    bytes of its weights, input and output, each moved once."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from ucnerf_torch.models import dpt
+
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        out = dpt.dpt_forward(params, x)
+    nbytes = (sum(v.numel() * v.element_size() for v in params.values())
+              + x.numel() * x.element_size() + out.numel() * 4)
+    return fc.get_total_flops(), nbytes
+
+
+def convert_seeded_weights() -> dict:
+    """(a) Seeded DPT depth, DPT segmentation and LPIPS state dicts under
+    their published names, saved with ``torch.save`` and converted through
+    ``python -m ucnerf_torch.convert_weights``; each npz read back: the DPT
+    ones through the DPT loader equal to the torch files read directly,
+    the LPIPS one through ``lpips_weights`` equal to its state dict."""
+    from ucnerf_torch import convert_weights
+    from ucnerf_torch.eval.lpips import lpips_weights, seeded_lpips_state_dict
+    from ucnerf_torch.models import dpt
+
+    depth = dpt.seeded_dpt_state_dict(0)
+    sds = {"dpt": depth,
+           "dpt_seg": dpt.seeded_dpt_state_dict(0, "seg", shared=depth),
+           "lpips": seeded_lpips_state_dict(0)}
+    files, secs = {}, {}
+    for kind, sd in sds.items():
+        src = PRE_DIR / f"{kind}_state.pth"
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, src)
+        dst = PRE_DIR / f"{kind}.npz"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_weights.main([kind, str(src), str(dst)])
+        secs[kind] = time.perf_counter() - t0
+        files[kind] = str(dst)
+        if kind == "lpips":
+            with np.load(dst) as f:
+                w = lpips_weights({k: f[k] for k in f.files})
+            check(all(torch.equal(w[f"conv{i}_w"], torch.from_numpy(
+                sd[f"net.slice{i + 1}.{cid}.weight"]))
+                for i, cid in enumerate((0, 3, 6, 8, 10))),
+                "the converted LPIPS kernels are not the state dict's")
+            continue
+        env = "UCNERF_DPT_WEIGHTS"
+        got = dpt._load_converted_params(str(dst), env, "", device="cpu")
+        want = dpt._load_converted_params(str(src), env, "", device="cpu")
+        check(list(got) == list(sd) and all(torch.equal(got[k], want[k])
+                                            for k in sd),
+              f"{kind}: the converted npz does not read back as its state "
+              f"dict")
+    return dict(files=files, convert_s=secs,
+                entries={k: len(v) for k, v in sds.items()},
+                dpt_parameters=int(sum(v.size for v in depth.values())))
+
+
+def phase_preprocess(dev, sd: dict) -> dict:
+    """Phase preprocess on phase scared's scan (16 frames at 1280x1024):
+    (a) ``convert_seeded_weights``; (b) ``python -m
+    ucnerf_torch.preprocess dpt`` over every frame in f32 and with
+    ``--bf16`` (the net at 384x480), each ``pred`` finite, positive and
+    1024x1280 and read back through the SCARED loader's ``_read_dpt``; the
+    net alone timed by CUDA events, its FLOPs and bound; (c) on frame 0
+    the card's f32 trunk and inverse depth against the port's CPU forward
+    of the same weights (DPT_CPU_TOL), and the card's bf16 trunk against
+    its f32 trunk (DPT_BF16_TOL); (d) ``preprocess seg`` on SEG_FRAMES
+    frames: labels in [1, 150], the PNG equal to ``blend_segmentation`` of
+    the frame; (e) ``--eval`` of phase scared's checkpoint with
+    ``$UCNERF_LPIPS_WEIGHTS`` set to the converted LPIPS npz: LPIPS
+    finite, K1 launches views x tiles; (f) whether a COLMAP binary is
+    found, and ``preprocess colmap`` on the scan, whose model exists,
+    rewriting ``poses_bounds.npy`` bit for bit."""
+    from ucnerf_torch import preprocess
+    from ucnerf_torch.config import parse_config
+    from ucnerf_torch.data import build_dataset, colmap_wrapper
+    from ucnerf_torch.data.image_io import read_frame
+    from ucnerf_torch.kernels.fused_mlp import fused_nerf_mlp
+    from ucnerf_torch.models import dpt
+    from ucnerf_torch.utils.png import read_png
+    from ucnerf_torch.utils.viz import blend_segmentation
+
+    scene = SCAN_DIR / "scene0"
+    shutil.rmtree(PRE_DIR, ignore_errors=True)
+    shutil.rmtree(OUT_DIR / "p_eval", ignore_errors=True)
+    PRE_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    weights = convert_seeded_weights()
+    weights["seconds"] = time.perf_counter() - t0
+
+    # (b) the DPT prior over the scan, f32 (TF32 off) and bf16
+    cfg = parse_config(SCAN_ARGS)
+    ds = build_dataset(cfg, "train")
+    frames = sorted((scene / "images").glob("*"))
+    runs, preds = {}, {}
+    for mode, extra in (("f32", []), ("bf16", ["--bf16"])):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = preprocess.main(["dpt", str(scene), "--weights",
+                                   weights["files"]["dpt"], *extra])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(out["frames"] == len(frames) == SCAN_FRAMES,
+              f"dpt {mode}: {out['frames']} frames of {len(frames)}")
+        for p in frames:
+            path = scene / "dpt" / f"{p.stem}.npz"
+            with np.load(path) as f:
+                pred = f["pred"]
+            check(pred.shape == SCAN_WH[::-1] and pred.dtype == np.float32
+                  and np.isfinite(pred).all() and pred.min() > 0,
+                  f"dpt {mode} {path.name}: {pred.shape} {pred.dtype} "
+                  f"min {pred.min()}")
+            prior = ds._read_dpt(str(path))
+            check(prior.shape == ds.img_wh[::-1] and np.isfinite(prior).all()
+                  and prior.min() > 0, f"_read_dpt({path.name}): "
+                  f"{prior.shape} min {prior.min()}")
+            if p == frames[0]:
+                preds[mode] = pred
+        runs[mode] = dict(
+            wall_s=wall, load_s=out["load_s"],
+            ms_per_frame=out["ms_per_frame"],
+            steady_ms_per_frame=float(np.median(out["ms_per_frame"][1:])),
+            scan_s=sum(out["ms_per_frame"]) / 1e3,
+            peak_mem_gib=peak / 2 ** 30,
+            peak_above_start_gib=(peak - base) / 2 ** 30)
+
+    # the net alone on frame 0's input, its work and its bound
+    img01 = np.asarray(read_frame(str(frames[0])), np.float32) / 255.0
+    params = {m: dpt._load_converted_params(
+        weights["files"]["dpt"], "UCNERF_DPT_WEIGHTS", "",
+        dtype=None if m == "f32" else "bfloat16", device=dev)
+        for m in ("f32", "bf16")}
+    x32, _, net_hw = dpt._net_input(img01, dev, torch.float32, 384)
+    xs = {"f32": x32, "bf16": x32.to(torch.bfloat16)}
+    net = {}
+    with torch.no_grad():
+        for m in ("f32", "bf16"):
+            flops, nbytes = dpt_work(params[m], xs[m])
+            ms = time_ms(lambda: dpt.dpt_forward(params[m], xs[m]), iters=10,
+                         warmup=2)
+            peak = PEAK_F32 if m == "f32" else PEAK_BF16
+            bound = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+            net[m] = dict(ms=ms, flops=flops, bytes=nbytes, bound_ms=bound,
+                          bound_by="operations" if flops / peak
+                          >= nbytes / PEAK_BYTES else "bytes",
+                          tflops=flops / ms / 1e9, bound_share=bound / ms,
+                          profile=profile_frame(
+                              lambda: dpt.dpt_forward(params[m], xs[m]),
+                              top=8, name=f"dpt_{m}_profile.txt"))
+
+        # (c) the card against the port's CPU forward, bf16 against f32
+        trunk = dpt._dpt_trunk(params["f32"], x32)
+        depth = dpt._depth_head(params["f32"], trunk)
+        trunk16 = dpt._dpt_trunk(params["bf16"], xs["bf16"])
+        cpu = dpt._load_converted_params(weights["files"]["dpt"],
+                                         "UCNERF_DPT_WEIGHTS", "",
+                                         device="cpu")
+        t0 = time.perf_counter()
+        trunk_cpu = dpt._dpt_trunk(cpu, x32.cpu())
+        depth_cpu = dpt._depth_head(cpu, trunk_cpu)
+        cpu_s = time.perf_counter() - t0
+    vs = dict(trunk_card_vs_cpu=rel_to_max(trunk, trunk_cpu),
+              depth_card_vs_cpu=rel_to_max(depth, depth_cpu),
+              trunk_bf16_vs_f32=rel_to_max(trunk16, trunk),
+              written_pred_bf16_vs_f32=rel_to_max(preds["bf16"],
+                                                  preds["f32"]),
+              cpu_forward_s=cpu_s, net_input_hw=list(net_hw))
+    check(vs["trunk_card_vs_cpu"] <= DPT_CPU_TOL
+          and vs["depth_card_vs_cpu"] <= DPT_CPU_TOL,
+          f"the card's f32 DPT against the CPU's: {vs}")
+    check(vs["trunk_bf16_vs_f32"] <= DPT_BF16_TOL,
+          f"the card's bf16 DPT trunk against its f32 one: {vs}")
+    del params, cpu, trunk, trunk16, trunk_cpu
+
+    # (d) segmentation of SEG_FRAMES frames
+    seg_scene = PRE_DIR / "seg_scene"
+    (seg_scene / "images").mkdir(parents=True)
+    for p in frames[:SEG_FRAMES]:
+        shutil.copy(p, seg_scene / "images" / p.name)
+    with contextlib.redirect_stdout(io.StringIO()):
+        seg_out = preprocess.main(["seg", str(seg_scene), "--weights",
+                                   weights["files"]["dpt_seg"]])
+    classes = []
+    for p in frames[:SEG_FRAMES]:
+        with np.load(seg_scene / "seg" / f"{p.stem}.npz") as f:
+            labels = f["labels"]
+        check(labels.shape == SCAN_WH[::-1] and labels.dtype == np.int32
+              and labels.min() >= 1 and labels.max() <= 150,
+              f"seg {p.stem}: {labels.shape} {labels.dtype} "
+              f"[{labels.min()}, {labels.max()}]")
+        img = np.asarray(read_frame(str(p)), np.float32)[..., :3] / 255.0
+        png = read_png(str(seg_scene / "seg" / f"{p.stem}.png"))
+        check(np.array_equal(png, blend_segmentation(img, labels)),
+              f"seg {p.stem}.png is not blend_segmentation of the frame")
+        classes.append(int(len(np.unique(labels))))
+    seg = dict(frames=seg_out["frames"], load_s=seg_out["load_s"],
+               ms_per_frame=seg_out["ms_per_frame"], classes=classes)
+
+    # (e) LPIPS from the converted seeded weights in --eval
+    val_ds = build_dataset(cfg, "val")
+    W, H = val_ds.img_wh
+    n_tiles = -(-W * H // cfg.chunk)
+    os.environ["UCNERF_LPIPS_WEIGHTS"] = weights["files"]["lpips"]
+    fused_nerf_mlp.launches = 0
+    try:
+        ev_summary, ev_lines, ev_wall = run_trainer(
+            "p_eval", "--eval", "--ckpt", sd["ckpt"], "--val_panels", "none",
+            base=SCAN_ARGS)
+    finally:
+        del os.environ["UCNERF_LPIPS_WEIGHTS"]
+    launches = fused_nerf_mlp.launches
+    [val] = [ln for ln in ev_lines if "val_step" in ln]
+    metrics = ev_summary["val"]
+    check(len(metrics) == 10 and np.isfinite(list(metrics.values())).all(),
+          f"--eval with converted LPIPS weights: {metrics}")
+    check(val["views"] == len(val_ds) and launches == len(val_ds) * n_tiles,
+          f"K1 launches {launches} over {val['views']} views, expected "
+          f"{len(val_ds)} x {n_tiles}")
+
+    # (f) COLMAP: the binary is optional; the scan's model exists, so only
+    # its poses are written (last: a new poses_bounds.npy stales the cache)
+    try:
+        colmap_bin = colmap_wrapper._colmap_bin()
+    except colmap_wrapper.ColmapNotFound:
+        colmap_bin = None
+    poses = np.load(scene / "poses_bounds.npy")
+    with contextlib.redirect_stdout(io.StringIO()):
+        preprocess.main(["colmap", str(scene)])
+    check(np.array_equal(np.load(scene / "poses_bounds.npy"), poses),
+          "preprocess colmap changed the scan's poses_bounds.npy")
+
+    res = dict(weights=weights, colmap_binary=colmap_bin, dpt=runs, net=net,
+               card_vs_cpu=vs, seg=seg, eval_metrics=metrics,
+               eval_ms_per_view=val["ms_per_view"], eval_wall_s=ev_wall,
+               k1_launches=launches)
+    log("preprocess", **res)
     return res
 
 
@@ -1303,9 +1566,16 @@ def main():
     hp = phase_http(cfg, dev)
     rp = phase_render_path(cfg)
     tr = phase_train(dev)
-    sd = phase_scared(dev, tr)
+    try:
+        sd = phase_scared(dev, tr)
+        pp = phase_preprocess(dev, sd)
+    finally:     # the scan, the weights and the checkpoints are large
+        shutil.rmtree(SCAN_DIR, ignore_errors=True)
+        shutil.rmtree(PRE_DIR, ignore_errors=True)
+        for name in ("s_train", "s_eval", "p_eval"):
+            shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
     record = {"k1": k1, "serving": sv, "http": hp, "render_path": rp,
-              "train": tr, "scared": sd, "nvidia_smi": smi,
+              "train": tr, "scared": sd, "preprocess": pp, "nvidia_smi": smi,
               "seconds": time.perf_counter() - t_start}
     (OUT_DIR / "result.json").write_text(json.dumps(record, indent=1))
     print(smi)
@@ -1314,7 +1584,8 @@ def main():
         "source": "ucnerf_torch/csrc/fused_mlp.cu",
         "replaces": "ucnerf_tpu/pallas/mlp_kernel.py:115",
         "launches": (sv["launches"] + hp["launches"] + rp["launches"]
-                     + tr["k1_launches"] + sd["k1_launches"]),
+                     + tr["k1_launches"] + sd["k1_launches"]
+                     + pp["k1_launches"]),
         "max_abs_err": k1["serving"]["bf16_vs_plain_bf16_max_abs_err"],
         "ms": k1["bf16_ms"], "plain_ms": k1["plain_bf16_ms"],
         "bound_ms": k1["bound_bf16_ms"], "bound_by": k1["bound_by_bf16"],

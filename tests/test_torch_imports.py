@@ -1,5 +1,5 @@
 """ucnerf_torch and chip_smoke.py import nothing of JAX, of the JAX package,
-or of the image libraries the card's machine lacks."""
+of the image libraries the card's machine lacks, or of transformers."""
 
 import ast
 import subprocess
@@ -13,7 +13,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ucnerf_tpu", "cv2", "PIL",
-             "imageio", "matplotlib"}
+             "imageio", "matplotlib", "transformers"}
 FILES = sorted((ROOT / "ucnerf_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -39,10 +39,13 @@ def test_serve_imports_with_jax_blocked():
     metrics, LPIPS, checkpoints, the device store, writer, prefetcher,
     profiling, PNG, panels, trajectories, the SCARED / Hamlyn / finetune
     datasets, COLMAP I/O, poses, the JPEG decoder's binding and the resize
-    twins), import when importing jax and the image libraries fails."""
+    twins), and ``ucnerf_torch.preprocess`` and
+    ``ucnerf_torch.convert_weights`` with theirs (DPT, COLMAP's wrapper and
+    dense I/O), import when importing jax, the image libraries and
+    transformers fails."""
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'optax', 'ucnerf_tpu', 'cv2', 'PIL',"
-            " 'imageio', 'matplotlib'):\n"
+            " 'imageio', 'matplotlib', 'transformers'):\n"
             "    sys.modules[m] = None\n"
             "import ucnerf_torch.serve, ucnerf_torch.kernels.fused_mlp\n"
             "import ucnerf_torch.train.__main__\n"
@@ -58,6 +61,9 @@ def test_serve_imports_with_jax_blocked():
             "import ucnerf_torch.data.colmap, ucnerf_torch.data.llff\n"
             "import ucnerf_torch.data.image_io, ucnerf_torch.data.resize\n"
             "import ucnerf_torch.utils.jpeg, ucnerf_torch.kernels.build\n"
+            "import ucnerf_torch.preprocess, ucnerf_torch.convert_weights\n"
+            "import ucnerf_torch.models.dpt, ucnerf_torch.data.colmap_dense\n"
+            "import ucnerf_torch.data.colmap_wrapper\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

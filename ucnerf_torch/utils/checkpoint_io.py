@@ -6,7 +6,8 @@ and the port's checkpoints.
 and restore the trainer's state (weights, Adam's moments, step) for exact
 resume; they stand in for the JAX package's orbax checkpoints.
 ``load_params_npz`` / ``save_params_npz`` read and write the JAX package's
-portable ``'/'``-keyed ``.npz`` params.
+portable ``'/'``-keyed ``.npz`` params; ``convert_reference_checkpoint``
+turns a reference checkpoint into that tree.
 ``state_dict_from_jax`` turns a JAX params tree (nested dict of arrays)
 into the port's state dicts, whose names follow the reference
 checkpoints; ``jax_params_from_state_dict`` is its inverse.  Both are
@@ -309,6 +310,14 @@ def load_reference_checkpoint(path: str) -> Dict[str, Dict]:
         f"{path}: unrecognized checkpoint format (expected ucnerf.tar "
         "keys network_fn_state_dict/network_mvs_state_dict, or "
         "casmvsnet.ckpt key 'model'); found " + ", ".join(sorted(obj)[:8]))
+
+
+def convert_reference_checkpoint(path: str) -> Dict:
+    """A reference ``ucnerf.tar`` or ``casmvsnet.ckpt`` -> the JAX params
+    tree of numpy arrays, as ``convert_reference_checkpoint`` of the JAX
+    package gives it (``save_params_npz`` writes it as the '/'-keyed npz
+    both packages read with ``--ckpt``)."""
+    return jax_params_from_state_dict(load_reference_checkpoint(path))
 
 
 def load_params(cfg, device) -> Dict[str, Dict]:
