@@ -7,7 +7,16 @@ ucnerf_torch.render_path``, and trains at the SCARED train point through
 checkpoint, its resume against an uninterrupted run (both with
 ``--deterministic``), ``--eval`` of the checkpoint over the whole val split
 with ``--val_panels all``, the device scene store against host loading,
-and an overfit of one sample.  Phase ``scared`` fabricates a
+and an overfit of one sample.  Phase ``options`` runs the cascade's and
+the renderer's options at the train point: ``--mvs_dtype bfloat16`` (its
+cascade against float32, trainer steps, the FeatureNet's weight gradients
+profiled in both dtypes, a ``--deterministic`` step run twice, bit for
+bit), the literal featurization (its feature tensor against the fast one,
+trainer steps, two ``--deterministic`` steps run twice, ``--eval`` on K1),
+``--use_color_volume`` (a served frame against the exact one, ms per frame
+at 48 and 64 planes, the volume's build time and memory) and
+``--encode_a`` (the table bit for bit after Adam's steps), K1 against the
+plain MLP on the new renders.  Phase ``scared`` fabricates a
 SCARED-layout scan at 1280x1024 with the port's own writers, loads it cold
 and warm through the scene cache, trains 12 steps on it through ``python
 -m ucnerf_torch.train --dataset_name scared``, evaluates the checkpoint
@@ -25,12 +34,14 @@ by ``scripts/dpt_probe.py``.
     python3 chip_smoke.py
 
 Phases (one line each): device, build, k1 (K1 vs plain), serving, http,
-render_path, resume, panels, store_vs_host, train, scared, preprocess.
+render_path, resume, panels, store_vs_host, train, options (four lines),
+scared, preprocess, then the seconds of each.
 Any failed check raises, so the script exits non-zero and prints no
 result.  Before the last line it prints the card's ``nvidia-smi`` name and
 power limit and one JSON line with every kernel of the main path (K1's
-launches summed over serving, HTTP, render_path, the eval, phase scared's
-eval and request, and phase preprocess's eval); the last line is
+launches summed over serving, HTTP, render_path, the eval, phase options'
+literal ``--eval`` and colour-volume request, phase scared's eval and
+request, and phase preprocess's eval); the last line is
 ``{"ok": true, "device": {...}}``.  Frames, panels, the trainer runs'
 stdout and directories (their checkpoints are deleted once checked),
 profiles and a JSON record go to ``chiprun_out/chip_smoke/`` beside this
@@ -108,6 +119,28 @@ DPT_CPU_TOL = 1e-3
 # the card's bf16 trunk against its f32 trunk: the JAX package's bound on
 # its bf16 trunk (tests/test_dpt.py:176)
 DPT_BF16_TOL = 6e-2
+# phase options: trainer steps per option, the --deterministic pairs' steps
+# of the literal featurization, and --encode_a's steps
+OPT_STEPS = 12
+OPT_DET_STEPS = 2
+ENCODE_STEPS = 4
+# (a) the bf16 cascade against f32 on val sample 0 of the serving scene
+# (320x256, V=7, the weights of --seed): its bound is twice the JAX
+# package's own bf16-vs-f32 gap on the same inputs and weights, measured
+# once on a CPU by scripts/jax_option_gaps.py (jax 0.9.0, XLA CPU, the
+# convolutions' outputs rounded to bf16 as the program says)
+CASCADE_BF16_GAP = dict(depth_mean_rel=0.002029495988901919,
+                        confidence_max_abs=0.6748963594436646)
+# (b) literal against fast features: tests/test_fast_feats.py:57-60's
+# bound, FEAT_TOL[0] * max|literal| + FEAT_TOL[1]
+FEAT_TOL = (2e-3, 1e-4)
+# (c) the 64-plane colour-volume frame against the exact one, mean abs of
+# rgb and depth: tests/test_color_volume.py:30-35's bound.  The JAX
+# package's own approximation keeps inside it at 320x256 on the same scene,
+# weights and pose (rgb 8.4e-4, depth 1.9e-3, scripts/jax_option_gaps.py)
+COLOR_VOLUME_TOL = (0.02, 0.05)
+COLOR_VOLUME_TOL_SOURCE = ("tests/test_color_volume.py:30-35 (the JAX "
+                           "package at 320x256: rgb 8.4e-4, depth 1.9e-3)")
 # the CPU parity tests' small shape (tests/test_torch_train.py)
 SMALL_ARGS = ["--dataset_name", "synthetic", "--view_num", "4", "--N_samples",
               "9", "--batch_size", "80", "--patch_size", "4", "--patch_num",
@@ -991,6 +1024,329 @@ def phase_train(dev):
     log("train", **res)
     return res
 
+def cli_pair_bitwise(name: str, argv: list) -> dict:
+    """Two identical ``ucnerf_torch.train`` runs of ``argv`` that stop at a
+    checkpoint: whether every step line's loss terms and LR and every
+    checkpointed weight are equal bit for bit."""
+    runs = []
+    for i in (1, 2):
+        shutil.rmtree(OUT_DIR / f"{name}{i}", ignore_errors=True)
+        summary, lines, _ = run_trainer(f"{name}{i}", *argv)
+        with np.load(os.path.join(summary["ckpt"], "params.npz")) as f:
+            runs.append((step_lines(lines), {k: f[k] for k in f.files}))
+        shutil.rmtree(OUT_DIR / f"{name}{i}" / "ckpts", ignore_errors=True)
+    (s1, p1), (s2, p2) = runs
+    keys = ("loss", "img_mse", "nerf_depth", "mvs", "smooth", "scaleinv",
+            "lr")
+    unequal = sorted(k for k in p1 if not np.array_equal(p1[k], p2[k]))
+    return dict(steps=len(s1), losses=[ln["loss"] for ln in s1],
+                lines_equal=len(s1) == len(s2) > 0 and all(
+                    a[k] == b[k] for a, b in zip(s1, s2) for k in keys),
+                unequal_params=unequal, params=len(p1))
+
+
+def wgrad_ms(profile_name: str) -> dict:
+    """Device ms of the weight-gradient kernels in a profile table that
+    ``profile_frame`` wrote (cuDNN and CUTLASS name them ``wgrad``)."""
+    rows = {}
+    for ln in (OUT_DIR / profile_name).read_text().splitlines():
+        ms, _, rest = ln.strip().partition(" ms ")
+        name = rest.split("x  ", 1)[-1]
+        if "wgrad" in name.lower():
+            rows[name[:100]] = rows.get(name[:100], 0.0) + float(ms)
+    return dict(total_ms=sum(rows.values()), kernels=rows)
+
+
+def phase_options(dev, tr: dict, sv: dict) -> dict:
+    """The cascade's and the renderer's options at the train point (TF32
+    off): (a) ``--mvs_dtype bfloat16``: one view's cascade against float32
+    within twice the JAX package's own gap (CASCADE_BF16_GAP), OPT_STEPS
+    trainer steps, the FeatureNet's weight gradients profiled in both
+    dtypes and one bf16 step profiled, and a ``--deterministic`` step run
+    twice; (b) ``fast_featurization`` false: the literal feature tensor of
+    one training batch against the fast one (FEAT_TOL), OPT_STEPS trainer
+    steps, two ``--deterministic`` steps run twice, ``--eval`` on K1 and
+    K1 against the plain MLP on the literal features; (c)
+    ``--use_color_volume --color_volume_depths 64``: one frame through
+    ``ucnerf_torch.serve`` against phase serving's exact frame of the same
+    pose (COLOR_VOLUME_TOL), steady ms/frame at 48 and 64 planes, the
+    volume's build time, peak memory, K1 against the plain MLP on that
+    frame; (d) ``--encode_a``: ENCODE_STEPS steps, the table bit for bit
+    its drawn value in the checkpoint."""
+    from ucnerf_torch import serve
+    from ucnerf_torch.config import parse_config
+    from ucnerf_torch.data import build_dataset
+    from ucnerf_torch.kernels.fused_mlp import fused_nerf_mlp
+    from ucnerf_torch.models.factory import create_models, init_params
+    from ucnerf_torch.ops.rays import draw_train_randomness
+    from ucnerf_torch.render.fast_feats import (build_color_volumes,
+                                                gen_pts_feats_fast)
+    from ucnerf_torch.render.renderer import gen_pts_feats, make_feat_ctx
+    from ucnerf_torch.render.serving import to_device_batch
+    from ucnerf_torch.train.loop import (TrainState, make_lr_schedule,
+                                         make_optimizer, make_train_step,
+                                         run_mvs, scene_inputs, unnormalize)
+    from ucnerf_torch.utils.checkpoint_io import load_params_npz
+
+    cfg = parse_config(TRAIN_ARGS)
+    W, H = cfg.img_wh
+    n_tiles = -(-W * H // cfg.chunk)
+    params = init_params(cfg, torch.Generator().manual_seed(cfg.seed), dev)
+    lit_json = OUT_DIR / "literal.json"
+    lit_json.write_text(json.dumps({"fast_featurization": False}))
+    res = {}
+    fused_nerf_mlp.launches = 0
+
+    # (a) the bf16 cascade on val sample 0 of the serving scene
+    val = to_device_batch(build_dataset(cfg, "val")[0], dev)
+    casc, casc_ms = {}, {}
+    for dt in ("float32", "bfloat16"):
+        _, mvs = create_models(cfg.replace(mvs_dtype=dt), dev, params)
+        with torch.no_grad():
+            casc[dt] = run_mvs(cfg, mvs, val)["stage3"]
+            casc_ms[dt] = time_ms(lambda: run_mvs(cfg, mvs, val), iters=5,
+                                  warmup=1)
+    d32, d16 = casc["float32"]["depth"], casc["bfloat16"]["depth"]
+    c32 = casc["float32"]["photometric_confidence"]
+    c16 = casc["bfloat16"]["photometric_confidence"]
+    gap = dict(depth_mean_rel=((d16 - d32).abs() / d32.abs()).mean().item(),
+               confidence_max_abs=(c16 - c32).abs().max().item(),
+               confidence_mean_abs=(c16 - c32).abs().mean().item())
+    check(gap["depth_mean_rel"] <= 2 * CASCADE_BF16_GAP["depth_mean_rel"]
+          and gap["confidence_max_abs"]
+          <= 2 * CASCADE_BF16_GAP["confidence_max_abs"],
+          f"bf16 cascade vs f32 beyond twice the JAX package's gap "
+          f"{CASCADE_BF16_GAP}: {gap}")
+    summary, lines, _ = run_trainer("o_bf16", "--mvs_dtype", "bfloat16",
+                                    "--stop_after_steps", str(OPT_STEPS))
+    bf16_steps = step_lines(lines)
+    check(len(bf16_steps) == OPT_STEPS and all(
+        np.isfinite(ln["loss"]) for ln in bf16_steps),
+        f"bf16 cascade steps: {bf16_steps}")
+    # the FeatureNet alone, forward + backward over the train sample's
+    # source views, in each dtype, its output gradients laid out as the
+    # step's gathers give them (contiguous channel-last, so NCHW with
+    # channels-last strides) and as plain NCHW; then one whole bf16 step
+    with bench_scene():
+        batch = to_device_batch(build_dataset(cfg, "train")[0], dev)
+    featnet = {}
+    for dt in ("float32", "bfloat16"):
+        _, mvs = create_models(cfg.replace(mvs_dtype=dt), dev, params)
+        shapes = {k: v.shape for k, v in
+                  mvs.features(batch["images"][1:]).items()}
+        for layout in ("channels_last", "nchw"):
+            grads = [torch.randn(s, device=dev) if layout == "channels_last"
+                     else torch.randn((s[0], s[3], s[1], s[2]), device=dev)
+                     .permute(0, 2, 3, 1) for s in shapes.values()]
+
+            def fwd_bwd():
+                out = mvs.features(batch["images"][1:])
+                torch.autograd.backward([out[k] for k in shapes], grads)
+            fwd_bwd()
+            name = f"featurenet_{dt}_{layout}_profile.txt"
+            prof = profile_frame(fwd_bwd, name=name)
+            featnet[f"{dt}_{layout}"] = dict(
+                device_busy_ms=prof["device_busy_ms"], wgrad=wgrad_ms(name))
+    # the CostRegNets alone, forward + backward at each stage's input
+    # shape at the train point, and their probability convolutions (one
+    # output channel, float32 in either dtype) alone
+    vol_shapes = [(1, c, d, H // s, W // s) for c, d, s in
+                  zip((32, 16, 8), cfg.ndepths, (4, 2, 1))]
+    costreg = {}
+    for dt in ("float32", "bfloat16"):
+        _, mvs = create_models(cfg.replace(mvs_dtype=dt), dev, params)
+        nets = mvs.cost_regularization
+        vols = [torch.randn(sh, device=dev, requires_grad=True)
+                for sh in vol_shapes]
+        costs = [torch.randn((1, 8) + sh[2:], device=dev,
+                             requires_grad=True) for sh in vol_shapes]
+        runs = {"costreg": lambda: sum(
+                    c.square().mean() + p.square().mean() for c, p in
+                    (net(v) for net, v in zip(nets, vols))).backward(),
+                "prob": lambda: sum(
+                    net.prob(c).square().mean()
+                    for net, c in zip(nets, costs)).backward()}
+        for part, run in runs.items():
+            run()
+            name = f"{part}_{dt}_profile.txt"
+            prof = profile_frame(run, name=name)
+            costreg[f"{part}_{dt}"] = dict(
+                device_busy_ms=prof["device_busy_ms"], wgrad=wgrad_ms(name))
+    bcfg = cfg.replace(mvs_dtype="bfloat16")
+    nerf, mvs = create_models(bcfg, dev, params)
+    state = TrainState(nerf, mvs, make_optimizer(bcfg, nerf, mvs))
+    step = make_train_step(bcfg, make_lr_schedule(bcfg, 10))
+    draws = draw_train_randomness(
+        torch.Generator(device=dev).manual_seed(1), H=H, W=W,
+        patch_size=cfg.patch_size, patch_num=cfg.patch_num,
+        n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_train_rays,
+        n_samples=cfg.N_samples)
+    for _ in range(3):
+        step(state, batch, draws)
+    bf16_profile = profile_frame(lambda: step(state, batch, draws),
+                                 name="train_bf16_profile.txt")
+    det = cli_pair_bitwise("o_bf16_det", [
+        "--mvs_dtype", "bfloat16", "--deterministic", "--stop_after_steps",
+        "1"])
+    res["bf16"] = dict(
+        cascade_vs_f32=gap, jax_gap=CASCADE_BF16_GAP,
+        cascade_ms=casc_ms, step_ms=[ln["ms"] for ln in bf16_steps],
+        steady_ms_per_step=float(np.median(
+            [ln["ms"] for ln in bf16_steps[2:]])),
+        f32_steady_ms_per_step=tr["steady_ms_per_step"],
+        f32_step_profile=tr["step_profile"],
+        f32_step_wgrad=wgrad_ms("train_profile.txt"),
+        featurenet=featnet, costreg=costreg, step_profile=bf16_profile,
+        step_wgrad=wgrad_ms("train_bf16_profile.txt"), deterministic=det)
+    log("options_bf16", **res["bf16"])
+    check(det["lines_equal"] and not det["unequal_params"],
+          f"--deterministic bf16 step not bit for bit: {det}")
+
+    # (b) the literal featurization
+    lcfg = cfg.replace(fast_featurization=False)
+    _, mvs = create_models(lcfg, dev, params)
+    with torch.no_grad():
+        draws = draw_train_randomness(
+            torch.Generator(device=dev).manual_seed(2), H=H, W=W,
+            patch_size=cfg.patch_size, patch_num=cfg.patch_num,
+            n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_train_rays,
+            n_samples=cfg.N_samples)
+        imgs, mvs_out, conf, rays = scene_inputs(lcfg, mvs, batch, draws)
+        ctx = make_feat_ctx(mvs_out, conf, imgs[1:], batch["w2cs"][1:],
+                            batch["intrinsics"][1:])
+        lit = gen_pts_feats(rays, ctx)
+        fast = gen_pts_feats_fast(rays, ctx["stage_volumes"], conf,
+                                  ctx["views"], ctx["src_w2cs"],
+                                  ctx["src_intrinsics"], (H, W))
+    v1 = cfg.view_num - 1
+    masks = slice(24 + 3, 24 + 4 * v1, 4)
+    feats = dict(shape=list(lit.shape),
+                 max_abs=(lit - fast).abs().max().item(),
+                 bound=FEAT_TOL[0] * lit.abs().max().item() + FEAT_TOL[1],
+                 mask_agreement=(lit[..., masks] == fast[..., masks])
+                 .float().mean().item())
+    check(feats["max_abs"] <= feats["bound"] and feats["mask_agreement"]
+          > 0.999, f"literal vs fast features: {feats}")
+    summary, lines, _ = run_trainer("o_lit", "--config", str(lit_json),
+                                    "--stop_after_steps", str(OPT_STEPS))
+    lit_steps = step_lines(lines)
+    check(len(lit_steps) == OPT_STEPS and all(
+        np.isfinite(ln["loss"]) for ln in lit_steps),
+        f"literal featurization steps: {lit_steps}")
+    lit_det = cli_pair_bitwise("o_lit_det", [
+        "--config", str(lit_json), "--deterministic", "--stop_after_steps",
+        str(OPT_DET_STEPS)])
+    check(lit_det["lines_equal"] and not lit_det["unequal_params"]
+          and lit_det["steps"] == OPT_DET_STEPS,
+          f"--deterministic literal steps not bit for bit: {lit_det}")
+    with bench_scene():
+        n_val = len(build_dataset(cfg, "val"))
+    before = fused_nerf_mlp.launches
+    ev_summary, ev_lines, _ = run_trainer(
+        "o_lit_eval", "--config", str(lit_json), "--eval", "--val_panels",
+        "none")
+    [ev] = [ln for ln in ev_lines if "val_step" in ln]
+    lit_launches = fused_nerf_mlp.launches - before
+    check(lit_launches == n_val * n_tiles and np.isfinite(
+        [v for k, v in ev_summary["val"].items() if k != "lpips"]).all(),
+        f"literal --eval: {lit_launches} K1 launches, {ev_summary['val']}")
+    launches = fused_nerf_mlp.launches
+    lit_k1, _ = kernel_vs_plain_frame(lcfg, params, val, (H, W), dev)
+    fused_nerf_mlp.launches = launches   # comparison launches do not count
+    check(lit_k1["rgb_mean_abs"] <= 5e-3 and lit_k1["depth_mean_rel"]
+          <= 5e-3, f"K1 vs plain on the literal features: {lit_k1}")
+    res["literal"] = dict(
+        features=feats, step_ms=[ln["ms"] for ln in lit_steps],
+        steady_ms_per_step=float(np.median(
+            [ln["ms"] for ln in lit_steps[2:]])),
+        deterministic=lit_det, eval_views=ev["views"],
+        eval_ms_per_view=ev["ms_per_view"], eval_metrics=ev_summary["val"],
+        k1_launches=lit_launches, kernel_vs_plain=lit_k1)
+    log("options_literal", **res["literal"])
+
+    # (c) the colour volume: one served frame of phase serving's pose 0
+    c2w = json.loads((OUT_DIR / "requests.jsonl").read_text()
+                     .splitlines()[0])["c2w"]
+    reqs = OUT_DIR / "cv_request.jsonl"
+    out = OUT_DIR / "cv_frame.npz"
+    reqs.write_text(json.dumps({"c2w": c2w, "out": str(out)}) + "\n")
+    cv_args = [*SERVE_ARGS, "--use_color_volume", "--color_volume_depths"]
+    before = fused_nerf_mlp.launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        n = serve.main(["--requests", str(reqs), *cv_args, "64"])
+    cv_launches = fused_nerf_mlp.launches - before
+    check(n == 1 and cv_launches == 2 * n_tiles,   # + the warm-up frame
+          f"colour-volume serve: {n} frames, {cv_launches} K1 launches")
+    with np.load(out) as f, np.load(OUT_DIR / "frame_000.npz") as g:
+        vs_exact = frame_diff([f[k] for k in FRAME_KEYS],
+                              [g[k] for k in FRAME_KEYS])
+    check(vs_exact["rgb_mean_abs"] < COLOR_VOLUME_TOL[0]
+          and vs_exact["depth_mean_abs"] < COLOR_VOLUME_TOL[1],
+          f"colour-volume frame vs exact beyond {COLOR_VOLUME_TOL}: "
+          f"{vs_exact}")
+    cv = {}
+    pose = np.asarray(c2w, np.float32)
+    for planes in (48, 64):
+        ccfg = parse_config([*cv_args, str(planes)])
+        renderer, _ = serve.build_renderer(ccfg)
+        fb = renderer.frame_batch(pose)
+        with torch.no_grad():
+            views = torch.cat([unnormalize(fb["images"][1:]),
+                               renderer.src_feats["stage3"]], dim=-1)
+            near, far = fb["near_fars"][0, 0], fb["near_fars"][0, 1]
+            build_ms = time_ms(lambda: build_color_volumes(
+                views, fb["w2cs"][1:], fb["intrinsics"][1:], fb["c2ws"][0],
+                fb["intrinsics"][0], near, far, planes), iters=3, warmup=1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            frame_ms = time_ms(lambda: renderer.render(pose), iters=3,
+                               warmup=1)
+            peak = torch.cuda.max_memory_allocated() - base
+        cv[planes] = dict(steady_ms_per_frame=frame_ms,
+                          volume_build_ms=build_ms,
+                          peak_mem_gib_above_start=peak / 2 ** 30,
+                          volume_gib=v1 * W * H * planes
+                          * (views.shape[-1] + 1) * 4 / 2 ** 30)
+    launches = fused_nerf_mlp.launches
+    cv_k1, _ = kernel_vs_plain_frame(cfg.replace(use_color_volume=True,
+                                                 color_volume_depths=64),
+                                     serve.load_params(cfg, dev),
+                                     renderer.frame_batch(pose), (H, W), dev)
+    fused_nerf_mlp.launches = launches   # comparison launches do not count
+    check(cv_k1["rgb_mean_abs"] <= 5e-3 and cv_k1["depth_mean_rel"] <= 5e-3,
+          f"K1 vs plain on the colour-volume frame: {cv_k1}")
+    res["color_volume"] = dict(
+        vs_exact=vs_exact, bound=COLOR_VOLUME_TOL,
+        bound_source=COLOR_VOLUME_TOL_SOURCE, k1_launches=cv_launches,
+        exact_steady_ms_per_frame=sv["steady_ms_per_frame"],
+        by_planes=cv, kernel_vs_plain=cv_k1)
+    log("options_color_volume", **res["color_volume"])
+
+    # (d) --encode_a: Adam leaves the table as it was drawn
+    summary, lines, _ = run_trainer("o_enc", "--encode_a",
+                                    "--stop_after_steps", str(ENCODE_STEPS))
+    table = load_params_npz(os.path.join(summary["ckpt"],
+                                         "params.npz"))["appearance"]
+    drawn = init_params(cfg.replace(encode_a=True), torch.Generator()
+                        .manual_seed(cfg.seed), "cpu")["appearance"].numpy()
+    enc_steps = step_lines(lines)
+    res["encode_a"] = dict(steps=len(enc_steps),
+                           losses=[ln["loss"] for ln in enc_steps],
+                           table_shape=list(table.shape),
+                           table_bitwise=bool(np.array_equal(table, drawn)))
+    shutil.rmtree(OUT_DIR / "o_enc" / "ckpts", ignore_errors=True)
+    log("options_encode_a", **res["encode_a"])
+    check(res["encode_a"]["table_bitwise"] and len(enc_steps) == ENCODE_STEPS
+          and np.isfinite(res["encode_a"]["losses"]).all(),
+          f"--encode_a: {res['encode_a']}")
+    for name in ("o_bf16", "o_lit", "o_lit_eval"):
+        shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
+    res["k1_launches"] = lit_launches + cv_launches
+    return res
+
+
 def fabricate_scan(scene: Path, seed: int = 0) -> dict:
     """A SCARED-layout scan written with the port's own writers: a textured
     tilted plane about 10 cm away seen by SCAN_FRAMES cameras 2 mm apart at
@@ -1557,35 +1913,46 @@ def main():
     # ``deterministic_kernels`` blocks of phase train need it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
     smi = phase_device()
     dev = torch.device("cuda", 0)
     cfg = parse_config(SERVE_ARGS)
-    phase_build()
-    k1 = phase_k1(cfg, dev)
-    sv = phase_serving(cfg, dev)
-    hp = phase_http(cfg, dev)
-    rp = phase_render_path(cfg)
-    tr = phase_train(dev)
+    timed("build", phase_build)
+    k1 = timed("k1", phase_k1, cfg, dev)
+    sv = timed("serving", phase_serving, cfg, dev)
+    hp = timed("http", phase_http, cfg, dev)
+    rp = timed("render_path", phase_render_path, cfg)
+    tr = timed("train", phase_train, dev)
+    op = timed("options", phase_options, dev, tr, sv)
     try:
-        sd = phase_scared(dev, tr)
-        pp = phase_preprocess(dev, sd)
+        sd = timed("scared", phase_scared, dev, tr)
+        pp = timed("preprocess", phase_preprocess, dev, sd)
     finally:     # the scan, the weights and the checkpoints are large
         shutil.rmtree(SCAN_DIR, ignore_errors=True)
         shutil.rmtree(PRE_DIR, ignore_errors=True)
         for name in ("s_train", "s_eval", "p_eval"):
             shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
     record = {"k1": k1, "serving": sv, "http": hp, "render_path": rp,
-              "train": tr, "scared": sd, "preprocess": pp, "nvidia_smi": smi,
-              "seconds": time.perf_counter() - t_start}
+              "train": tr, "options": op, "scared": sd, "preprocess": pp,
+              "nvidia_smi": smi,
+              "seconds": time.perf_counter() - t_start,
+              "phase_seconds": seconds}
     (OUT_DIR / "result.json").write_text(json.dumps(record, indent=1))
+    log("seconds", total=record["seconds"], **seconds)
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fused_nerf_mlp", "route": "cuda",
         "source": "ucnerf_torch/csrc/fused_mlp.cu",
         "replaces": "ucnerf_tpu/pallas/mlp_kernel.py:115",
         "launches": (sv["launches"] + hp["launches"] + rp["launches"]
-                     + tr["k1_launches"] + sd["k1_launches"]
-                     + pp["k1_launches"]),
+                     + tr["k1_launches"] + op["k1_launches"]
+                     + sd["k1_launches"] + pp["k1_launches"]),
         "max_abs_err": k1["serving"]["bf16_vs_plain_bf16_max_abs_err"],
         "ms": k1["bf16_ms"], "plain_ms": k1["plain_bf16_ms"],
         "bound_ms": k1["bound_bf16_ms"], "bound_by": k1["bound_by_bf16"],

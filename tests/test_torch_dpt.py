@@ -34,6 +34,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 IMG = np.random.default_rng(8).uniform(-1, 1, (64, 64, 3)).astype(np.float32)
+# compile time, not run time, dominates these references on the CPU
+JIT_QUICK = {"xla_backend_optimization_level": 0}
 
 
 @pytest.fixture(scope="module")
@@ -82,10 +84,12 @@ def _jax_trunk_and_head(p, head, monkeypatch):
     with ``_dpt_trunk`` answering the map already computed, so the trunk
     compiles once."""
     jp = {k: jnp.asarray(v) for k, v in p.items()}
-    trunk = jax.jit(J._dpt_trunk)(jp, jnp.asarray(IMG))
+    trunk = jax.jit(J._dpt_trunk, compiler_options=JIT_QUICK)(
+        jp, jnp.asarray(IMG))
     with monkeypatch.context() as m:
         m.setattr(J, "_dpt_trunk", lambda p, img: trunk)
-        out = jax.jit(lambda p, img: head(p, img))(jp, jnp.asarray(IMG))
+        out = jax.jit(lambda p, img: head(p, img),
+                      compiler_options=JIT_QUICK)(jp, jnp.asarray(IMG))
     return np.asarray(trunk), np.asarray(out)
 
 
@@ -125,7 +129,7 @@ def test_dpt_bf16_trunk_matches_jax_bf16(weights):
     outputs stay f32."""
     jp = {k: jnp.asarray(v.astype(jnp.bfloat16))
           for k, v in weights["depth"].items()}
-    want = np.asarray(jax.jit(J._dpt_trunk)(
+    want = np.asarray(jax.jit(J._dpt_trunk, compiler_options=JIT_QUICK)(
         jp, jnp.asarray(IMG, jnp.bfloat16)).astype(jnp.float32))
     p = T.to_torch_params(weights["depth"], "bfloat16")
     assert all(v.dtype == torch.bfloat16 for v in p.values())

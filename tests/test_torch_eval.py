@@ -16,11 +16,13 @@ from ucnerf_torch.eval import lpips as t_lpips
 from ucnerf_torch.eval import metrics as t_metrics
 
 torch.set_num_threads(1)
+# compile time, not run time, dominates these references on the CPU
+JIT_QUICK = {"xla_backend_optimization_level": 0}
 
 # the JAX references compiled whole, as the JAX package's validator runs
 # LPIPS (``load_lpips``): op-by-op dispatch compiles every op on its own
-J_SSIM = jax.jit(j_metrics.ssim)
-J_LPIPS = jax.jit(j_lpips.lpips_distance)
+J_SSIM = jax.jit(j_metrics.ssim, compiler_options=JIT_QUICK)
+J_LPIPS = jax.jit(j_lpips.lpips_distance, compiler_options=JIT_QUICK)
 
 
 def _pairs(rng, n, h, w):

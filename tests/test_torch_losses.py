@@ -9,11 +9,8 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
 from ucnerf_tpu.config import Config as JConfig
-from ucnerf_tpu.models.factory import create_models as j_create_models
-from ucnerf_tpu.train import loop as j_loop
 from ucnerf_tpu.train import losses as j_loss
 
 from ucnerf_torch.config import Config
@@ -21,14 +18,18 @@ from ucnerf_torch.render.serving import to_device_batch
 from ucnerf_torch.train import loop as t_loop
 from ucnerf_torch.train import losses as t_loss
 
-from test_torch_train import _draws, _jcfg, _port, case  # noqa: F401
+from test_torch_train import (SCENE_REFS, _draws, _port,  # noqa: F401
+                              case, jax_scene_refs)
 
 torch.set_num_threads(1)
 
 RTOL = 1e-5
+# compile time, not run time, dominates these references on the CPU
+JIT_QUICK = {"xla_backend_optimization_level": 0}
 # the JAX references compiled whole: op by op, each primitive compiles on
 # its own, which costs more than the one compile
-J_LOSS = {name: jax.jit(getattr(j_loss, name)) for name in (
+J_LOSS = {name: jax.jit(getattr(j_loss, name), compiler_options=JIT_QUICK)
+          for name in (
     "img2mse", "mse2psnr", "smooth_l1", "cas_mvsnet_loss",
     "edge_preserving_smoothness", "_compute_scale_and_shift",
     "gradient_scaleinv_loss")}
@@ -134,7 +135,8 @@ def test_total_loss_terms_and_gradients(rng):
             mvs_out={k: {"depth": v} for k, v in est.items()}, **fixed)
 
     (j_total, j_terms), j_grads = jax.jit(jax.value_and_grad(
-        j_fn, argnums=(0, 1, 2), has_aux=True))(rgb, depth, est)
+        j_fn, argnums=(0, 1, 2), has_aux=True),
+        compiler_options=JIT_QUICK)(rgb, depth, est)
 
     args = [_t(rgb).requires_grad_(), _t(depth).requires_grad_(),
             {k: _t(v).requires_grad_() for k, v in est.items()}]
@@ -167,21 +169,16 @@ def test_bf16_and_mvs_only_losses_match_jax(case):
     float32 round-off moves the rounded values).  --mvs_only: the loss
     and its depth diagnostic agree to 6e-3, and a train step leaves the
     MLP as it was (zero gradients, zero Adam moments)."""
-    key = jax.random.PRNGKey(5)
-    batch_j = j_loop.to_device_batch(case["sample"])
     batch = to_device_batch(case["sample"], "cpu")
-    jp = jax.tree.map(jnp.asarray, case["jparams"])
-    for flags, rtol in ((dict(nerf_dtype="bfloat16"), 2e-2),
-                        (dict(mvs_only=True), 6e-3)):
+    for name, rtol in (("bf16", 2e-2), ("mvs_only", 6e-3)):
+        flags, seed, _ = SCENE_REFS[name]
         cfg = case["cfg"].replace(**flags)
-        jcfg = _jcfg(cfg)
-        jnerf, jmvs = j_create_models(jcfg)
-        _, terms_j = jax.jit(lambda p: j_loop.scene_loss(
-            jcfg, jnerf, jmvs, p, batch_j, key))(jp)
+        _, terms_j = jax_scene_refs()[name]
         nerf, mvs = _port(cfg, case["params"])
         with torch.no_grad():
             _, terms = t_loop.scene_loss(cfg, nerf, mvs, batch,
-                                         _draws(cfg, key))
+                                         _draws(cfg, jax.random.PRNGKey(
+                                             seed)))
         assert sorted(terms) == sorted(terms_j)
         for name in terms_j:
             np.testing.assert_allclose(float(terms[name]),

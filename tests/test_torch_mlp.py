@@ -27,6 +27,8 @@ from ucnerf_torch.utils.checkpoint_io import (jax_params_from_state_dict,
                                               nerf_state_dict_from_jax)
 
 torch.set_num_threads(1)
+# compile time, not run time, dominates these references on the CPU
+JIT_QUICK = {"xla_backend_optimization_level": 0}
 
 V, S = 5, 7
 
@@ -53,7 +55,8 @@ def case():
     )["nerf"])
     x33 = _inputs(33, cfg.feat_dim, 3)   # 33 * 7 points: not a tile multiple
     x16 = _inputs(16, cfg.feat_dim, 4)
-    f32, bf16 = jax.jit(j_f32.apply), jax.jit(j_bf16.apply)
+    f32, bf16 = (jax.jit(m.apply, compiler_options=JIT_QUICK)
+                 for m in (j_f32, j_bf16))
     out = dict(
         f32=np.asarray(f32({"params": params}, *x33)),
         truth16=np.asarray(f32({"params": params}, *x16)),

@@ -1,6 +1,7 @@
 """ucnerf_torch ops against the JAX package's on the same random inputs:
 positional encoding, compositing, depth candidates, eval rays, resizes,
-the plane-sweep warp + variance volume and the fast featurization."""
+the plane-sweep warp + variance volume, the fast and the literal
+featurization, and the colour volumes of ``--use_color_volume``."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from ucnerf_tpu.ops import rays as j_rays
 from ucnerf_tpu.ops import sampling as j_samp
 from ucnerf_tpu.ops import warp as j_warp
 from ucnerf_tpu.render import fast_feats as j_ff
+from ucnerf_tpu.render import renderer as j_renderer
 
 from ucnerf_torch.models import mvs as t_mvs
 from ucnerf_torch.ops import composite as t_comp
@@ -25,11 +27,15 @@ from ucnerf_torch.ops import pe as t_pe
 from ucnerf_torch.ops import rays as t_rays
 from ucnerf_torch.ops import warp as t_warp
 from ucnerf_torch.render import fast_feats as t_ff
+from ucnerf_torch.render import renderer as t_renderer
 
 torch.set_num_threads(1)
 
 ATOL = 1e-5
 H, W, V1, S = 16, 24, 3, 12
+N_PLANES = 10          # colour-volume depth planes
+# compile time, not run time, dominates these references on the CPU
+JIT_QUICK = {"xla_backend_optimization_level": 0}
 
 
 def _t(a):
@@ -90,36 +96,45 @@ def case():
     inp["jitter"] = np.asarray(jax.random.uniform(jax.random.PRNGKey(1),
                                                   (40, S)))
 
-    # every reference compiled whole: op-by-op dispatch compiles every op
-    # on its own
-    j = {}
-    j["pe"] = jax.jit(j_pe.positional_encoding, static_argnums=1)(
-        jnp.asarray(inp["x"]), 4)
-    j["composite"] = jax.jit(j_comp.raw2outputs, static_argnums=2)(
-        inp["raw"], inp["z"], True)
-    j["dist"] = jax.jit(j_comp.depth2dist)(inp["z"], inp["cos"])
-    j["bilinear"] = jax.jit(j_interp.resize_bilinear, static_argnums=1)(
-        inp["img"], (H, W))
-    j["trilinear"] = jax.jit(j_interp.resize_trilinear, static_argnums=1)(
-        inp["vol"], (4, H, W))
-    j["nearest"] = jax.jit(j_interp.upsample2x_nearest)(inp["img"])
-    common = dict(intrinsic=K, c2w=c2ws[0], w2c_ref=w2cs[0],
-                  intrinsic_ref=K, near_ref=near, far_ref=far,
-                  stage_planes=planes)
-    j["rays"] = jax.jit(lambda p, c: j_rays.build_test_rays(
-        p, H=H, W=W, n_samples=S, **c))(jnp.asarray(pix), common)
-    nf = j["rays"]["stage_near_far"]
-    j["cands"] = jax.jit(lambda nf, key: j_samp.stratified_jitter(
-        j_samp.stage_depth_candidates(nf, S), key))(nf, jax.random.PRNGKey(1))
-    j["warp"] = jax.jit(lambda: j_warp.homo_warp(
-        inp["feat"][0], inp["projs"][0], inp["depth_vals"], pad=1))()
-    j["variance"] = jax.jit(lambda: j_mvs._variance_cost_volume(
-        inp["feat"], inp["projs"], inp["depth_vals"], pad=1))()
-    j["point_feats"] = jax.jit(j_ff.index_point_feature_fast)(
-        inp["volumes"], inp["conf"], j["rays"])
-    j["colors"] = jax.jit(lambda pts, quads: j_ff.build_color_volume_fast(
-        pts, w2cs[1:], np.broadcast_to(K, (V1, 3, 3)), quads, (H, W)))(
-        j["rays"]["points_world"], j_ff.pack_quads(jnp.asarray(inp["views"])))
+    Ks = np.broadcast_to(K, (V1, 3, 3))
+
+    # every reference traced and compiled as one function: op-by-op
+    # dispatch compiles every op on its own, and each jit has its cost
+    def refs(inp):
+        j = {}
+        j["pe"] = j_pe.positional_encoding(inp["x"], 4)
+        j["composite"] = j_comp.raw2outputs(inp["raw"], inp["z"], True)
+        j["dist"] = j_comp.depth2dist(inp["z"], inp["cos"])
+        j["bilinear"] = j_interp.resize_bilinear(inp["img"], (H, W))
+        j["trilinear"] = j_interp.resize_trilinear(inp["vol"], (4, H, W))
+        j["nearest"] = j_interp.upsample2x_nearest(inp["img"])
+        j["rays"] = rays = j_rays.build_test_rays(
+            inp["pix"], H=H, W=W, n_samples=S, intrinsic=K, c2w=c2ws[0],
+            w2c_ref=w2cs[0], intrinsic_ref=K, near_ref=near, far_ref=far,
+            stage_planes=inp["planes"])
+        j["cands"] = j_samp.stratified_jitter(j_samp.stage_depth_candidates(
+            rays["stage_near_far"], S), jax.random.PRNGKey(1))
+        j["warp"] = j_warp.homo_warp(inp["feat"][0], inp["projs"][0],
+                                     inp["depth_vals"], pad=1)
+        j["variance"] = j_mvs._variance_cost_volume(
+            inp["feat"], inp["projs"], inp["depth_vals"], pad=1)
+        j["point_feats"] = j_ff.index_point_feature_fast(
+            inp["volumes"], inp["conf"], rays)
+        quads = j_ff.pack_quads(inp["views"])
+        j["colors"] = j_ff.build_color_volume_fast(
+            rays["points_world"], w2cs[1:], Ks, quads, (H, W))
+        mvs_out = {f"stage{k}": {"volume_feature": v}
+                   for k, v in inp["volumes"].items()}
+        mvs_out["img_feats"] = inp["views"][..., 3:]
+        j["literal"] = j_renderer.gen_pts_feats(
+            rays, mvs_out, inp["conf"], inp["views"][..., :3], w2cs[1:], Ks)
+        j["volumes"] = j_ff.build_color_volumes(
+            quads, w2cs[1:], Ks, c2ws[0], K, near, far, (H, W), N_PLANES)
+        j["volume_feats"] = j_ff.sample_color_volumes_per_ray(
+            j["volumes"], rays, near, far, (H, W), 8)
+        return j
+    j = jax.jit(refs, compiler_options=JIT_QUICK)(
+        {k: v for k, v in inp.items() if k not in ("K", "near", "far")})
     return inp, jax.tree.map(np.asarray, j)
 
 
@@ -197,3 +212,48 @@ def test_fast_featurization(case):
         _t(np.broadcast_to(inp["K"], (V1, 3, 3))), _t(inp["views"]), (H, W))
     assert colors.shape == j["colors"].shape
     _close(colors, j["colors"])
+
+
+def test_literal_featurization(case):
+    """``fast_featurization`` false: the literal feature tensor (per-point
+    trilinear lookups of the stage volumes, the confidence at the stage-3
+    xy, each point reprojected into each source view) against the JAX
+    package's ``gen_pts_feats``, to 1e-5 of its largest value."""
+    inp, j = case
+    rays = _rays(inp)
+    views = _t(inp["views"])
+    mvs_out = {f"stage{k}": {"volume_feature": _t(v)}
+               for k, v in inp["volumes"].items()}
+    mvs_out["img_feats"] = views[..., 3:]
+    ctx = t_renderer.make_feat_ctx(
+        mvs_out, _t(inp["conf"]), views[..., :3], _t(inp["w2cs"][1:]),
+        _t(np.broadcast_to(inp["K"], (V1, 3, 3))))
+    got = t_renderer.gen_pts_feats(rays, ctx).numpy()
+    want = j["literal"]
+    assert got.shape == want.shape == (40, S, 24 + 12 * V1 + 1)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    # the in-bounds masks: both in and out of the source views
+    masks = want[..., 24 + 3:24 + 4 * V1:4]
+    assert 0 < masks.mean() < 1
+    np.testing.assert_array_equal(got[..., 24 + 3:24 + 4 * V1:4], masks)
+
+
+def test_color_volumes(case):
+    """``--use_color_volume``: the per-frame volumes (every source view at
+    N_PLANES depth planes of every target pixel, rgb | features | mask)
+    and their per-ray reads against the JAX package's
+    ``build_color_volumes`` / ``sample_color_volumes_per_ray`` (the JAX
+    read is a one-hot einsum, the port's a gather and a lerp: equal up to
+    round-off)."""
+    inp, j = case
+    rays = _rays(inp)
+    vols = t_ff.build_color_volumes(
+        _t(inp["views"]), _t(inp["w2cs"][1:]),
+        _t(np.broadcast_to(inp["K"], (V1, 3, 3))), _t(inp["c2ws"][0]),
+        _t(inp["K"]), _t(inp["near"]), _t(inp["far"]), N_PLANES)
+    assert vols.shape == j["volumes"].shape == (V1, H * W, N_PLANES, 12)
+    _close(vols, j["volumes"])
+    got = t_ff.sample_color_volumes_per_ray(vols, rays, _t(inp["near"]),
+                                            _t(inp["far"]), (H, W))
+    assert got.shape == j["volume_feats"].shape == (40, S, 12 * V1)
+    _close(got, j["volume_feats"])

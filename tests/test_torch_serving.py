@@ -28,6 +28,8 @@ from ucnerf_torch.utils.png import read_png
 
 torch.set_num_threads(1)
 
+JIT_QUICK = {"xla_backend_optimization_level": 0}
+
 ARGS = ["--dataset_name", "synthetic", "--view_num", "4", "--ndepths", "8",
         "8", "8", "--N_samples", "12", "--chunk", "256", "--nerf_dtype",
         "float32"]
@@ -44,8 +46,10 @@ def _poses(sample):
 @pytest.fixture(scope="module")
 def case():
     """The port's seeded weights carried into the JAX params tree, and the
-    JAX ServingRenderer's frames from them, computed once."""
-    cfg = j_parse_config(ARGS)
+    JAX ServingRenderer's frames from them, computed once (its tile loop
+    not unrolled, which the frames do not depend on: the compile is the
+    cost here)."""
+    cfg = j_parse_config(ARGS).replace(eval_unroll=1)
     ds = j_build_dataset(cfg, "val")
     W, H = ds.img_wh
     nerf, mvs = j_create_models(cfg)
@@ -54,7 +58,11 @@ def case():
     sample = ds[0]
     r = JServingRenderer(cfg, nerf, mvs, jax.tree.map(jnp.asarray, params),
                          sample, (H, W), ds.scene[ds.metas[0][0]]["intrinsic"])
-    frames = [r.render_np(c2w) for c2w in _poses(sample)]
+    # its render_np, compiled for compile time rather than run time
+    render = jax.jit(r._render_view, compiler_options=JIT_QUICK)
+    frames = [tuple(np.asarray(a) for a in render(r.params,
+                                                  r.frame_batch(c2w)))
+              for c2w in _poses(sample)]
     return dict(params=params, sample=sample, frames=frames)
 
 

@@ -7,7 +7,9 @@ JAX tree by ``jax_params_from_state_dict``; the ray draws are the ones
 JAX makes from one key (``test_torch_train_rays.jax_train_draws``)."""
 
 import dataclasses
+import functools
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -25,10 +27,12 @@ from ucnerf_tpu.utils import checkpoint_io as j_ckpt
 from ucnerf_torch import serve
 from ucnerf_torch.config import Config, parse_config
 from ucnerf_torch.data import build_dataset
-from ucnerf_torch.models.factory import create_models, init_params
+from ucnerf_torch.models.factory import (create_appearance, create_models,
+                                         init_params)
 from ucnerf_torch.render.serving import to_device_batch
 from ucnerf_torch.train import __main__ as train_cli
 from ucnerf_torch.train import loop as t_loop
+from ucnerf_torch.utils import checkpoint_io
 from ucnerf_torch.utils.checkpoint_io import (jax_params_from_state_dict,
                                               load_params_npz,
                                               state_dict_from_jax)
@@ -43,19 +47,59 @@ ARGS = ["--dataset_name", "synthetic", "--view_num", "4", "--N_samples",
         "--lrate", "5e-4", "--ndepths", "8", "8", "8", "--nerf_dtype",
         "float32"]
 H, W = 32, 64
+# compile time, not run time, dominates the JAX references on the CPU
+JIT_QUICK = {"xla_backend_optimization_level": 0}
+# the JAX scene losses this file and tests/test_torch_losses.py hold the
+# port to: (config flags, PRNG key, with gradients)
+SCENE_REFS = {"fast": ({}, 21, True),
+              "literal": ({"fast_featurization": False}, 21, True),
+              "bf16": ({"nerf_dtype": "bfloat16"}, 5, False),
+              "mvs_only": ({"mvs_only": True}, 5, False)}
 
 
 def _jcfg(cfg: Config) -> JConfig:
     return JConfig(**dataclasses.asdict(cfg))
 
 
-@pytest.fixture(scope="module")
-def case():
+@functools.lru_cache(maxsize=None)
+def _case() -> dict:
     cfg = parse_config(ARGS)
     sample = build_dataset(cfg, "train")[0]
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     return dict(cfg=cfg, sample=sample, params=params,
                 jparams=jax_params_from_state_dict(params))
+
+
+@pytest.fixture(scope="module")
+def case():
+    return _case()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_scene_refs() -> dict:
+    """The JAX package's ``scene_loss`` on the case's sample and weights
+    for each of SCENE_REFS: {name: ((loss, terms), gradient tree)} with
+    gradients, else (loss, terms).  Compiling dominates, so each is
+    compiled on a thread of its own while the next one is traced."""
+    c = _case()
+    batch = j_loop.to_device_batch(c["sample"])
+    p = jax.tree.map(jnp.asarray, c["jparams"])
+
+    def ref(flags, seed, grad):
+        jcfg = _jcfg(c["cfg"].replace(**flags))
+        jnerf, jmvs = j_create_models(jcfg)
+
+        def loss(p):
+            return j_loop.scene_loss(jcfg, jnerf, jmvs, p, batch,
+                                     jax.random.PRNGKey(seed))
+        return jax.value_and_grad(loss, has_aux=True) if grad else loss
+
+    with ThreadPoolExecutor(len(SCENE_REFS)) as pool:
+        compiled = {name: pool.submit(jax.jit(ref(*spec)).lower(p).compile,
+                                      JIT_QUICK)
+                    for name, spec in SCENE_REFS.items()}
+        return {name: jax.tree.map(np.asarray, f.result()(p))
+                for name, f in compiled.items()}
 
 
 def _port(cfg, params):
@@ -105,14 +149,15 @@ def test_adam_matches_optax(case, finetune):
     spe = 1                      # the cosine LR moves every update
     tx = j_loop.make_optimizer(_jcfg(cfg), spe)
     jp = jax.tree.map(jnp.asarray, case["jparams"])
-    opt_state = jax.jit(tx.init)(jp)     # one compile, not one per shape
+    # one compile, not one per shape
+    opt_state = jax.jit(tx.init, compiler_options=JIT_QUICK)(jp)
     nerf, mvs = _port(cfg, case["params"])
     opt = t_loop.make_optimizer(cfg, nerf, mvs)
     sched = t_loop.make_lr_schedule(cfg, spe)
     trained = {id(p) for g in opt.param_groups for p in g["params"]}
     rng = np.random.default_rng(1)
 
-    @jax.jit
+    @functools.partial(jax.jit, compiler_options=JIT_QUICK)
     def j_step(g, opt_state, jp):
         updates, opt_state = tx.update(g, opt_state, jp)
         return jax.tree.map(lambda a, u: a + u, jp, updates), opt_state
@@ -163,32 +208,22 @@ def _rel_envelope(got: dict, want: dict):
     return rels
 
 
-def test_scene_loss_and_gradients_match_jax(case):
-    """``scene_loss`` with pinned draws against ``jax.value_and_grad`` of
-    the JAX package's, over all 154 gradient tensors mapped through the
-    weight bridge.  The envelope of ``tests/test_loss_parity.py``: terms
-    rtol 6e-3; per-tensor rel (max abs diff / max abs) median < 5e-3 and
-    worst < 3e-2.  float32 MLP: at bf16 its rounding rounds the cotangents
-    too (``tests/test_torch_losses.py`` checks the bf16 loss values)."""
-    cfg = case["cfg"]
-    jcfg = _jcfg(cfg)
-    jnerf, jmvs = j_create_models(jcfg)
-    key = jax.random.PRNGKey(21)
-    batch_j = j_loop.to_device_batch(case["sample"])
-    (loss_j, terms_j), grads_j = jax.jit(jax.value_and_grad(
-        lambda p: j_loop.scene_loss(jcfg, jnerf, jmvs, p, batch_j, key),
-        has_aux=True))(jax.tree.map(jnp.asarray, case["jparams"]))
-
+def _check_scene_loss_and_gradients(case, name: str):
+    """The port's ``scene_loss`` and gradients at SCENE_REFS[name] against
+    ``jax_scene_refs()[name]``, with JAX's draws."""
+    flags, seed, _ = SCENE_REFS[name]
+    cfg = case["cfg"].replace(**flags)
+    (_, terms_j), grads_j = jax_scene_refs()[name]
     nerf, mvs = _port(cfg, case["params"])
     loss, terms = t_loop.scene_loss(cfg, nerf, mvs,
                                     to_device_batch(case["sample"], "cpu"),
-                                    _draws(cfg, key))
+                                    _draws(cfg, jax.random.PRNGKey(seed)))
     loss.backward()
     for name in terms_j:
         np.testing.assert_allclose(float(terms[name].detach()),
                                    float(terms_j[name]), rtol=6e-3,
                                    err_msg=name)
-    want = state_dict_from_jax(jax.tree.map(np.asarray, grads_j))
+    want = state_dict_from_jax(grads_j)
     want = {**want["nerf"], **want["mvs"]}
     got = _grads(nerf, mvs)
     assert sorted(got) == sorted(want) and len(want) == 154
@@ -198,6 +233,25 @@ def test_scene_loss_and_gradients_match_jax(case):
     med = float(np.median(list(rels.values())))
     assert med < 5e-3, f"median gradient rel {med:.2e}"
     assert rels[worst] < 3e-2, f"gradient mismatch {worst}: {rels[worst]:.2e}"
+
+
+def test_scene_loss_and_gradients_match_jax(case):
+    """``scene_loss`` with pinned draws against ``jax.value_and_grad`` of
+    the JAX package's, over all 154 gradient tensors mapped through the
+    weight bridge.  The envelope of ``tests/test_loss_parity.py``: terms
+    rtol 6e-3; per-tensor rel (max abs diff / max abs) median < 5e-3 and
+    worst < 3e-2.  float32 MLP: at bf16 its rounding rounds the cotangents
+    too (``tests/test_torch_losses.py`` checks the bf16 loss values)."""
+    _check_scene_loss_and_gradients(case, "fast")
+
+
+def test_literal_scene_loss_and_gradients_match_jax(case):
+    """``fast_featurization`` false: the train step's loss and its 154
+    gradients through the literal featurization (per-point trilinear and
+    bilinear lookups, ``render/renderer.py::gen_pts_feats``) against
+    ``jax.value_and_grad`` of the JAX package's literal path, in the same
+    envelope."""
+    _check_scene_loss_and_gradients(case, "literal")
 
 
 def test_finetune_step_freezes_cascade(case):
@@ -219,6 +273,84 @@ def test_finetune_step_freezes_cascade(case):
     moved = [not torch.equal(p.detach(), nerf_before[n])
              for n, p in nerf.named_parameters()]
     assert all(moved)
+
+
+def test_encode_a_table_trains_and_is_harmless(case, tmp_path):
+    """--encode_a (the JAX package's ``test_encode_a_table_trains_and_is_
+    harmless``): ``init_params`` draws the appearance table [N_vocab, N_a]
+    N(0, 1) after both nets, whose weights stay as without the flag; Adam
+    holds it with a zero gradient, so three steps leave it bit for bit as
+    drawn and give the losses of the same steps without it; --finetune
+    keeps it in the trained set and freezes the cascade only.  The table
+    round-trips through a checkpoint (weights and Adam's zero moments) and
+    through the JAX params tree and its npz, which the JAX package reads."""
+    cfg = case["cfg"].replace(encode_a=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    table0 = params["appearance"].clone()
+    assert table0.shape == (cfg.N_vocab, cfg.N_a)
+    assert abs(float(table0.std()) - 1.0) < 0.05
+    for name in ("nerf", "mvs"):
+        for k, v in case["params"][name].items():
+            assert torch.equal(params[name][k], v), k
+    batch = to_device_batch(case["sample"], "cpu")
+    losses, states = {}, {}
+    for flag in (True, False):
+        c = case["cfg"].replace(encode_a=flag)
+        nerf, mvs = _port(c, params)
+        table = create_appearance(c, "cpu", params)
+        assert (table is None) != flag
+        state = t_loop.TrainState(nerf, mvs, t_loop.make_optimizer(
+            c, nerf, mvs, table), appearance=table)
+        step = t_loop.make_train_step(c, t_loop.make_lr_schedule(c, 10))
+        losses[flag] = [float(step(state, batch, _draws(
+            c, jax.random.PRNGKey(i)))["loss"]) for i in range(3)]
+        states[flag] = state
+    assert losses[True] == losses[False]
+    state = states[True]
+    assert torch.equal(state.appearance.detach(), table0)
+    assert not torch.equal(state.nerf.nerf.rgb_linear.weight,
+                           case["params"]["nerf"]["nerf.rgb_linear.weight"])
+
+    # checkpoint: the table and its (zero) Adam moments come back
+    path = checkpoint_io.save_checkpoint(str(tmp_path), state, state.step)
+    saved = checkpoint_io.load_params_npz(path + "/params.npz")
+    np.testing.assert_array_equal(saved["appearance"], table0.numpy())
+    nerf, mvs = _port(cfg, params)
+    other = create_appearance(cfg, "cpu", {"appearance": torch.zeros(
+        table0.shape)})
+    back = t_loop.TrainState(nerf, mvs, t_loop.make_optimizer(
+        cfg, nerf, mvs, other), objective=state.objective, appearance=other)
+    checkpoint_io.load_checkpoint(path, back)
+    assert torch.equal(back.appearance.detach(), table0)
+    moments = back.optimizer.state[back.appearance]
+    assert not moments["exp_avg"].any() and not moments["exp_avg_sq"].any()
+
+    # the JAX params tree ('appearance' beside 'nerf' and 'mvs', as the
+    # JAX package's init_params puts it), its npz in both packages, and
+    # back
+    tree = checkpoint_io.params_tree(state.nerf, state.mvs, state.appearance)
+    assert sorted(tree) == ["appearance", "mvs", "nerf"]
+    sd = state_dict_from_jax(tree)
+    np.testing.assert_array_equal(sd["appearance"], table0.numpy())
+    jax.tree.map(np.testing.assert_array_equal,
+                 jax_params_from_state_dict(sd), tree)
+    npz = checkpoint_io.save_params_npz(tree, str(tmp_path / "p.npz"))
+    np.testing.assert_array_equal(j_ckpt.load_params_npz(npz)["appearance"],
+                                  table0.numpy())
+    loaded = checkpoint_io.load_params(cfg.replace(ckpt=npz), "cpu")
+    np.testing.assert_array_equal(
+        create_appearance(cfg, "cpu", loaded).detach().numpy(),
+        table0.numpy())
+
+    # --finetune: the cascade frozen, the MLP and the table trained
+    cf = cfg.replace(finetune="synth0")
+    nerf, mvs = _port(cf, params)
+    table = create_appearance(cf, "cpu", params)
+    opt = t_loop.make_optimizer(cf, nerf, mvs, table)
+    trained = {id(p) for g in opt.param_groups for p in g["params"]}
+    assert id(table) in trained
+    assert not any(id(p) in trained for p in mvs.parameters())
+    assert all(id(p) in trained for p in nerf.parameters())
 
 
 @pytest.mark.parametrize("where", ["loss", "gradient"])

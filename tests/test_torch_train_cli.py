@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from ucnerf_torch.config import parse_config
+from ucnerf_torch.data import build_dataset
 from ucnerf_torch.eval.metrics import DEPTH_METRICS
 from ucnerf_torch.train import __main__ as train_cli
 from ucnerf_torch import render_path, serve
@@ -212,26 +214,63 @@ def test_eval_renders_shapes_the_kernel_does_not_take(tmp_path, capsys):
                         if k != "lpips"]).all()
 
 
+def _entry_point(entry, tmp_path):
+    """``main(argv)`` of one entry point at the small shape on the CPU: a
+    train run stopped after 2 steps, one serve request, a 2-frame
+    render_path."""
+    c2w = np.asarray(build_dataset(parse_config(ARGS), "val")[0]["c2ws"][0])
+    reqs = tmp_path / "reqs.jsonl"
+    reqs.write_text(json.dumps({"c2w": c2w.tolist(),
+                                "out": str(tmp_path / "f.npz")}) + "\n")
+    return {"train": lambda a: train_cli.main(
+                [*CLI, "--basedir", str(tmp_path), "--stop_after_steps", "2",
+                 *a]),
+            "serve": lambda a: serve.main(["--requests", str(reqs),
+                                           "--device", "cpu", *ARGS, *a]),
+            "render_path": lambda a: render_path.main(
+                ["--device", "cpu", "--out", str(tmp_path / "p.npz"),
+                 "--n_frames", "2", *ARGS, *a])}[entry]
+
+
 @pytest.mark.parametrize("entry", ["train", "serve", "render_path"])
-@pytest.mark.parametrize("option", ["literal_featurization", "mesh_shape"])
+@pytest.mark.parametrize("option", ["mesh_shape"])
 def test_unported_options_raise(entry, option, tmp_path):
-    """fast_featurization false (the literal featurization) and
-    --mesh_shape > 1 are refused by every entry point, not ignored."""
-    if option == "mesh_shape":
-        argv = ["--mesh_shape", "2"]
-    else:
+    """--mesh_shape > 1 is refused by every entry point, not ignored."""
+    with pytest.raises(NotImplementedError, match="mesh_shape"):
+        _entry_point(entry, tmp_path)(["--mesh_shape", "2"])
+
+
+@pytest.mark.parametrize("entry,option", [
+    ("train", "literal_featurization"), ("serve", "literal_featurization"),
+    ("render_path", "literal_featurization"), ("serve", "use_color_volume"),
+    ("train", "mvs_dtype_bfloat16")])
+def test_options_run_in_every_entry_point(entry, option, tmp_path):
+    """The cascade's and the renderer's options run in the entry points
+    (each held to the JAX package in ``tests/test_torch_{ops,options,
+    mvs,train}.py``): fast_featurization false (set with --config) in
+    train, serve and render_path, --use_color_volume in serve and
+    --mvs_dtype bfloat16 in train, each to finite output."""
+    if option == "literal_featurization":
         cfg = tmp_path / "literal.json"
         cfg.write_text(json.dumps({"fast_featurization": False}))
         argv = ["--config", str(cfg)]
-    main = {"train": lambda a: train_cli.main([*CLI, *a]),
-            "serve": lambda a: serve.main(["--requests", "-", "--device",
-                                           "cpu", *ARGS, *a]),
-            "render_path": lambda a: render_path.main(
-                ["--device", "cpu", "--out", str(tmp_path / "p.npz"),
-                 *ARGS, *a])}[entry]
-    match = "mesh_shape" if option == "mesh_shape" else "fast_featurization"
-    with pytest.raises(NotImplementedError, match=match):
-        main(argv)
+    else:
+        argv = {"use_color_volume": ["--use_color_volume",
+                                     "--color_volume_depths", "8"],
+                "mvs_dtype_bfloat16": ["--mvs_dtype", "bfloat16"]}[option]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = _entry_point(entry, tmp_path)(argv)
+    if entry == "train":
+        losses = [ln["loss"] for ln in steps(
+            [json.loads(ln) for ln in buf.getvalue().splitlines()
+             if ln.startswith("{")])]
+        assert out["steps"] == 2 and np.isfinite(losses).all()
+        return
+    frames = (np.load(tmp_path / "f.npz") if entry == "serve"
+              else np.load(out["out"]))
+    assert entry != "serve" or out == 1
+    assert all(np.isfinite(frames[k]).all() for k in ("rgb", "depth"))
 
 
 def test_deterministic_flag(monkeypatch):

@@ -19,6 +19,8 @@ torch.set_num_threads(1)
 
 H, W = 32, 64
 PS, PN, N_UNIFORM, N_DEPTH, S = 4, 4, 16, 32, 9
+# compile time, not run time, dominates these references on the CPU
+JIT_QUICK = {"xla_backend_optimization_level": 0}
 
 
 def jax_train_draws(key, *, H, W, patch_size, patch_num, n_uniform, n_rays,
@@ -97,7 +99,8 @@ def test_build_train_rays_matches_jax(jitter):
     n_rays = PN * PS * PS + N_UNIFORM + N_DEPTH
     j = jax.jit(functools.partial(
         j_rays.build_train_rays, patch_size=PS, patch_num=PN,
-        n_uniform=N_UNIFORM, n_samples=S, jitter=jitter))(
+        n_uniform=N_UNIFORM, n_samples=S, jitter=jitter),
+        compiler_options=JIT_QUICK)(
         key, **_to(inp, jnp.asarray), w2c_ref=jnp.eye(4),
         intrinsic_ref=jnp.asarray(inp["intrinsic"]))
     draws = jax_train_draws(key, H=H, W=W, patch_size=PS, patch_num=PN,

@@ -10,6 +10,10 @@
   per-channel affine), which is BN for a batch of one.  The cost volumes
   run with a batch of one.
 - ``TorchDense``: ``nn.Linear`` whose init law is chosen by the factory.
+- Compute dtype (``--mvs_dtype``): with ``dtype`` set, a conv block casts
+  its input and weight to it and convolves there; the BN statistics, the
+  affine and the ReLU run in float32 on the float32 cast of the result,
+  so every block hands float32 to the next.  The parameters stay float32.
 """
 
 from __future__ import annotations
@@ -34,33 +38,47 @@ class BatchStatNorm(nn.Module):
                                use_input_stats=True, eps=self.eps)
 
 
+def _low(conv: nn.Module, x, dtype):
+    """(input, weight) of ``conv`` cast to the compute dtype, if any."""
+    if dtype is None:
+        return x, conv.weight
+    return x.to(dtype), conv.weight.to(dtype)
+
+
 class ConvBNReLU(nn.Module):
     """Conv{2,3}d (no bias) + BatchStatNorm + ReLU, named like the
-    reference blocks (``.conv``, ``.bn``)."""
+    reference blocks (``.conv``, ``.bn``); the convolution runs in
+    ``dtype`` when it is given."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 1, dims: int = 2):
+                 padding: int = 1, dims: int = 2, dtype=None):
         super().__init__()
         conv = nn.Conv3d if dims == 3 else nn.Conv2d
         self.conv = conv(cin, cout, kernel, stride=stride, padding=padding,
                          bias=False)
         self.bn = BatchStatNorm(cout)
+        self.dtype = dtype
 
     def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+        y = self.conv._conv_forward(*_low(self.conv, x, self.dtype), None)
+        return F.relu(self.bn(y.float()))
 
 
 class DeconvBNReLU3d(nn.Module):
-    """ConvTranspose3d (k3, s2, p1, output_padding 1, no bias) + BN + ReLU."""
+    """ConvTranspose3d (k3, s2, p1, output_padding 1, no bias) + BN + ReLU;
+    the transposed convolution runs in ``dtype`` when it is given."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype=None):
         super().__init__()
         self.conv = nn.ConvTranspose3d(cin, cout, 3, stride=2, padding=1,
                                        output_padding=1, bias=False)
         self.bn = BatchStatNorm(cout)
+        self.dtype = dtype
 
     def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+        x, w = _low(self.conv, x, self.dtype)
+        y = F.conv_transpose3d(x, w, stride=2, padding=1, output_padding=1)
+        return F.relu(self.bn(y.float()))
 
 
 class TorchDense(nn.Linear):

@@ -16,6 +16,11 @@ inside.  Module names follow the reference state dict
   (4-bin sliding prob mass at the winner index).
 - Cascade depth-range propagation: bilinear upsample of the previous depth,
   clamped linspace re-centering, trilinear resize to stage resolution.
+- ``dtype`` (``--mvs_dtype``): the compute dtype of the conv blocks
+  (``layers.ConvBNReLU``, ``DeconvBNReLU3d``).  The FPN's lateral and output
+  convolutions, the CostRegNet's probability convolution and the depth
+  hypotheses stay float32, so the variance volume is built from float32
+  features, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,15 +37,17 @@ from ucnerf_torch.ops.warp import homo_warp
 class FeatureNet(nn.Module):
     """FPN feature extractor, [V, 3, H, W] -> 3 stage maps (NCHW)."""
 
-    def __init__(self, bc: int = 8):
+    def __init__(self, bc: int = 8, dtype=None):
         super().__init__()
-        self.conv0 = nn.Sequential(ConvBNReLU(3, bc), ConvBNReLU(bc, bc))
-        self.conv1 = nn.Sequential(ConvBNReLU(bc, 2 * bc, 5, 2, 2),
-                                   ConvBNReLU(2 * bc, 2 * bc),
-                                   ConvBNReLU(2 * bc, 2 * bc))
-        self.conv2 = nn.Sequential(ConvBNReLU(2 * bc, 4 * bc, 5, 2, 2),
-                                   ConvBNReLU(4 * bc, 4 * bc),
-                                   ConvBNReLU(4 * bc, 4 * bc))
+        dt = dict(dtype=dtype)
+        self.conv0 = nn.Sequential(ConvBNReLU(3, bc, **dt),
+                                   ConvBNReLU(bc, bc, **dt))
+        self.conv1 = nn.Sequential(ConvBNReLU(bc, 2 * bc, 5, 2, 2, **dt),
+                                   ConvBNReLU(2 * bc, 2 * bc, **dt),
+                                   ConvBNReLU(2 * bc, 2 * bc, **dt))
+        self.conv2 = nn.Sequential(ConvBNReLU(2 * bc, 4 * bc, 5, 2, 2, **dt),
+                                   ConvBNReLU(4 * bc, 4 * bc, **dt),
+                                   ConvBNReLU(4 * bc, 4 * bc, **dt))
         self.out1 = nn.Conv2d(4 * bc, 4 * bc, 1, bias=False)
         self.inner1 = nn.Conv2d(2 * bc, 4 * bc, 1, bias=True)
         self.inner2 = nn.Conv2d(bc, 4 * bc, 1, bias=True)
@@ -65,18 +72,19 @@ class CostRegNet(nn.Module):
     """3D U-Net cost regularizer, [1, C, D, H, W] -> (cost [1, bc, ...],
     prob logits [1, 1, ...])."""
 
-    def __init__(self, cin: int, bc: int = 8):
+    def __init__(self, cin: int, bc: int = 8, dtype=None):
         super().__init__()
-        self.conv0 = ConvBNReLU(cin, bc, dims=3)
-        self.conv1 = ConvBNReLU(bc, 2 * bc, stride=2, dims=3)
-        self.conv2 = ConvBNReLU(2 * bc, 2 * bc, dims=3)
-        self.conv3 = ConvBNReLU(2 * bc, 4 * bc, stride=2, dims=3)
-        self.conv4 = ConvBNReLU(4 * bc, 4 * bc, dims=3)
-        self.conv5 = ConvBNReLU(4 * bc, 8 * bc, stride=2, dims=3)
-        self.conv6 = ConvBNReLU(8 * bc, 8 * bc, dims=3)
-        self.conv7 = DeconvBNReLU3d(8 * bc, 4 * bc)
-        self.conv9 = DeconvBNReLU3d(4 * bc, 2 * bc)
-        self.conv11 = DeconvBNReLU3d(2 * bc, bc)
+        dt = dict(dims=3, dtype=dtype)
+        self.conv0 = ConvBNReLU(cin, bc, **dt)
+        self.conv1 = ConvBNReLU(bc, 2 * bc, stride=2, **dt)
+        self.conv2 = ConvBNReLU(2 * bc, 2 * bc, **dt)
+        self.conv3 = ConvBNReLU(2 * bc, 4 * bc, stride=2, **dt)
+        self.conv4 = ConvBNReLU(4 * bc, 4 * bc, **dt)
+        self.conv5 = ConvBNReLU(4 * bc, 8 * bc, stride=2, **dt)
+        self.conv6 = ConvBNReLU(8 * bc, 8 * bc, **dt)
+        self.conv7 = DeconvBNReLU3d(8 * bc, 4 * bc, dtype)
+        self.conv9 = DeconvBNReLU3d(4 * bc, 2 * bc, dtype)
+        self.conv11 = DeconvBNReLU3d(2 * bc, bc, dtype)
         self.prob = nn.Conv3d(bc, 1, 3, padding=1, bias=False)
 
     def forward(self, x):
@@ -178,14 +186,14 @@ class CascadeMVSNet(nn.Module):
     """
 
     def __init__(self, ndepths=(48, 32, 8), depth_intervals_ratio=(4, 2, 1),
-                 base_channels: int = 8, cr_base_chs=(8, 8, 8)):
+                 base_channels: int = 8, cr_base_chs=(8, 8, 8), dtype=None):
         super().__init__()
         self.ndepths = tuple(ndepths)
         self.depth_intervals_ratio = tuple(depth_intervals_ratio)
-        self.feature = FeatureNet(base_channels)
+        self.feature = FeatureNet(base_channels, dtype)
         stage_chs = (4 * base_channels, 2 * base_channels, base_channels)
         self.cost_regularization = nn.ModuleList(
-            CostRegNet(stage_chs[si], cr_base_chs[si])
+            CostRegNet(stage_chs[si], cr_base_chs[si], dtype)
             for si in range(len(self.ndepths)))
 
     def features(self, imgs_src):

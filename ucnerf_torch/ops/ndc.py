@@ -1,4 +1,4 @@
-"""World points -> reference-view pixel coordinates."""
+"""World points -> reference-view pixel coordinates and per-stage NDC."""
 
 from __future__ import annotations
 
@@ -23,3 +23,22 @@ def project_to_pixel(points, w2c, intrinsic, inv_scale, clamp_z: bool = True):
     pix = points @ intrinsic.transpose(-1, -2)
     xy = pix[..., :2] / pix[..., 2:] / inv_scale
     return torch.cat([xy, pix[..., 2:]], dim=-1)
+
+
+def world_to_ref_ndc(points, w2c, intrinsic, inv_scale, stage_near_far):
+    """Per-stage NDC of world points [N, S, 3] in the reference view:
+    {'stage1', 'stage2', 'stage3', 'ndc'} of [N, S, 3], xy from
+    ``project_to_pixel`` and z normalized by each ray's stage range
+    ('near_k' / 'far_k' [N, 1]) or by the scene's ('near' / 'far').  The
+    rays' builders write this in closed form (``ops.rays``); this is the
+    general projection, for points off the reference view's rays."""
+    pix = project_to_pixel(points, w2c, intrinsic, inv_scale)
+    xy, z = pix[..., :2], pix[..., 2:]
+    out = {}
+    for k in (1, 2, 3):
+        near = stage_near_far[f"near_{k}"][..., None]
+        far = stage_near_far[f"far_{k}"][..., None]
+        out[f"stage{k}"] = torch.cat([xy, (z - near) / (far - near)], dim=-1)
+    near, far = stage_near_far["near"], stage_near_far["far"]
+    out["ndc"] = torch.cat([xy, (z - near) / (far - near)], dim=-1)
+    return out

@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from ucnerf_torch.ops.sampling import stage_depth_candidates
+from ucnerf_torch.ops.sampling import sample_pdf, stage_depth_candidates
 
 
 class TrainDraws(NamedTuple):
@@ -192,3 +192,72 @@ def build_test_rays(pixel_idx, *, H: int, W: int, intrinsic, c2w,
                      near_ref=near_ref, far_ref=far_ref,
                      stage_planes=stage_planes, n_samples=n_samples,
                      jitter_u=jitter_u)
+
+
+# ----------------------------------------------------------- latent ray APIs
+# (the reference's data/ray_utils.py, kept for completeness; the live
+# pipeline uses the stage-based builders above.  Draws come in as tensors.)
+
+def get_ndc_rays(H: int, W: int, focal, near, rays_o, rays_d):
+    """Shift rays to the near plane and project them into NeRF's NDC cube.
+    ``focal`` = (fx, fy)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    ox_oz = rays_o[..., 0] / rays_o[..., 2]
+    oy_oz = rays_o[..., 1] / rays_o[..., 2]
+    o0 = -1.0 / (W / (2.0 * focal[0])) * ox_oz
+    o1 = -1.0 / (H / (2.0 * focal[1])) * oy_oz
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+    d0 = -1.0 / (W / (2.0 * focal[0])) * (rays_d[..., 0] / rays_d[..., 2]
+                                          - ox_oz)
+    d1 = -1.0 / (H / (2.0 * focal[1])) * (rays_d[..., 1] / rays_d[..., 2]
+                                          - oy_oz)
+    d2 = 1.0 - o2
+    return (torch.stack([o0, o1, o2], dim=-1),
+            torch.stack([d0, d1, d2], dim=-1))
+
+
+def ray_aabb(rays_o, rays_d, bbox):
+    """Slab-method ray / box intersection: bbox [2, 3] (min, max) ->
+    (t_min, t_max), each [..., 1]."""
+    inv_d = 1.0 / (rays_d + 1e-6)
+    t = torch.stack([(bbox[0] - rays_o) * inv_d, (bbox[1] - rays_o) * inv_d])
+    t_min = torch.amax(torch.amin(t, dim=0), dim=-1, keepdim=True)
+    t_max = torch.amin(torch.amax(t, dim=0), dim=-1, keepdim=True)
+    return t_min, t_max
+
+
+def ray_marcher(rays, n_samples: int = 64, lindisp: bool = False,
+                perturb: float = 0.0, u=None):
+    """Uniform (or disparity-space) samples along rays [N, 8] = [o(3),
+    d(3), near, far], jittered within their intervals by ``perturb`` times
+    the uniform draws ``u`` [N, n_samples] when both are given.
+    Returns (points [N, S, 3], rays_o, rays_d, z_vals [N, S])."""
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    near, far = rays[:, 6:7], rays[:, 7:8]
+    steps = torch.linspace(0.0, 1.0, n_samples, dtype=rays.dtype,
+                           device=rays.device)
+    if lindisp:
+        z_vals = 1.0 / (1.0 / near * (1.0 - steps) + 1.0 / far * steps)
+    else:
+        z_vals = near * (1.0 - steps) + far * steps
+    if perturb > 0 and u is not None:
+        mids = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+        upper = torch.cat([mids, z_vals[:, -1:]], dim=-1)
+        lower = torch.cat([z_vals[:, :1], mids], dim=-1)
+        z_vals = lower + (upper - lower) * perturb * u
+    points = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
+    return points, rays_o, rays_d, z_vals
+
+
+def ray_marcher_fine(rays, z_vals, weights, n_importance: int = 64, u=None):
+    """``n_importance`` more depths resampled from the coarse ``weights``
+    (``sample_pdf`` with the draws ``u``, None for even quantiles), merged
+    with ``z_vals`` and sorted.  Returns (points, rays_o, rays_d, z_vals)."""
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+    z_samples = sample_pdf(z_mid, weights[:, 1:-1], n_importance,
+                           u=u).detach()
+    z_vals = torch.sort(torch.cat([z_samples, z_vals], dim=-1), dim=-1).values
+    points = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
+    return points, rays_o, rays_d, z_vals

@@ -2,9 +2,10 @@
 
 Per ray and cascade stage k, ``N_samples // 3`` uniformly spaced depths in
 that stage's per-pixel [near_k, far_k]; concatenated, sorted, and
-optionally jittered within the sorted intervals.  The jitter takes its
-uniform draws as a tensor, so a test can feed both packages the same
-numbers.
+optionally jittered within the sorted intervals; and the inverse-CDF
+resampling ``sample_pdf`` (hierarchical sampling, a latent capability of
+the reference).  The jitter and ``sample_pdf`` take their uniform draws as
+a tensor, so a test can feed both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -40,3 +41,27 @@ def stage_depth_candidates(stage_near_far, n_samples: int, jitter_u=None):
     if jitter_u is not None:
         depth = stratified_jitter(depth, jitter_u)
     return depth
+
+
+def sample_pdf(bins, weights, n_samples: int, u=None):
+    """Inverse-CDF resampling: bins [N, B], weights [N, B-1] -> samples
+    [N, n_samples].  ``u`` [N, n_samples] holds the uniform draws; None
+    places the samples at evenly spaced quantiles (deterministic)."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    if u is None:
+        u = torch.linspace(0.0, 1.0, n_samples, dtype=cdf.dtype,
+                           device=cdf.device).expand(*cdf.shape[:-1],
+                                                     n_samples)
+    inds = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_g0 = torch.gather(cdf, -1, below)
+    cdf_g1 = torch.gather(cdf, -1, above)
+    bins_g0 = torch.gather(bins, -1, below)
+    bins_g1 = torch.gather(bins, -1, above)
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    return bins_g0 + (u - cdf_g0) / denom * (bins_g1 - bins_g0)

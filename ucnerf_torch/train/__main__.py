@@ -73,7 +73,7 @@ from ucnerf_torch.data import build_dataset
 from ucnerf_torch.data.device_store import (build_store, gather_batch,
                                             sample_indices, store_nbytes)
 from ucnerf_torch.kernels.fused_mlp import require_kernel_shape
-from ucnerf_torch.models.factory import create_models
+from ucnerf_torch.models.factory import create_appearance, create_models
 from ucnerf_torch.ops.rays import draw_train_randomness
 from ucnerf_torch.render.serving import to_device_batch
 from ucnerf_torch.train.loop import (TrainState, make_lr_schedule,
@@ -169,7 +169,9 @@ def run(cfg: Config, ns: argparse.Namespace) -> dict:
     ``--ckpt`` to the end or to ``--stop_after_steps``."""
     dev = resolve_device(ns.device)
 
-    nerf, mvs = create_models(cfg, dev, checkpoint_io.load_params(cfg, dev))
+    params = checkpoint_io.load_params(cfg, dev)
+    nerf, mvs = create_models(cfg, dev, params)
+    appearance = create_appearance(cfg, dev, params)
     require_kernel_shape(nerf)      # before a long run, not at validation
     if cfg.ckpt:
         _emit(restored=cfg.ckpt, params_only=cfg.ckpt_params_only)
@@ -182,8 +184,8 @@ def run(cfg: Config, ns: argparse.Namespace) -> dict:
 
     train_ds = build_dataset(cfg, "train")
     n_train = len(train_ds)
-    state = TrainState(nerf, mvs, make_optimizer(cfg, nerf, mvs),
-                       objective=objective(cfg))
+    state = TrainState(nerf, mvs, make_optimizer(cfg, nerf, mvs, appearance),
+                       objective=objective(cfg), appearance=appearance)
     if (cfg.ckpt and not cfg.ckpt_params_only
             and os.path.isdir(cfg.ckpt)):
         checkpoint_io.load_checkpoint(cfg.ckpt, state)
@@ -260,8 +262,8 @@ def run(cfg: Config, ns: argparse.Namespace) -> dict:
            else validate(validator, nerf, mvs, state.step, dev, final=True))
     writer.close()
     if ns.save_params:
-        checkpoint_io.save_params_npz(checkpoint_io.params_tree(nerf, mvs),
-                                      ns.save_params)
+        checkpoint_io.save_params_npz(
+            checkpoint_io.params_tree(nerf, mvs, appearance), ns.save_params)
     median = float(np.median(step_ms)) if step_ms else None
     summary = {"steps": state.step, "epochs": epoch + 1, "wall_s": wall,
                "median_step_ms": median,

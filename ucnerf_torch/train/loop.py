@@ -17,7 +17,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -43,6 +43,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
     objective: str = "full"
+    appearance: Optional[torch.nn.Parameter] = None   # --encode_a
 
 
 def cosine_epoch_schedule(lrate: float, num_epochs: int,
@@ -79,13 +80,18 @@ def make_lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable:
     raise ValueError(f"unknown lr_scheduler {cfg.lr_scheduler!r}")
 
 
-def make_optimizer(cfg: Config, nerf, mvs) -> torch.optim.Optimizer:
-    """Adam, betas (0.9, 0.999), eps 1e-8, over the NeRF MLP and, unless
-    ``--finetune`` freezes it, the cascade.  The train step sets the LR
-    from the schedule before each update."""
+def make_optimizer(cfg: Config, nerf, mvs,
+                   appearance=None) -> torch.optim.Optimizer:
+    """Adam, betas (0.9, 0.999), eps 1e-8, over the NeRF MLP, the cascade
+    (unless ``--finetune`` freezes it) and ``--encode_a``'s appearance
+    table (which no render reads: its gradient is zero, so Adam leaves it
+    as it is).  The train step sets the LR from the schedule before each
+    update."""
     params = list(nerf.parameters())
     if cfg.finetune is None:
         params += list(mvs.parameters())
+    if appearance is not None:
+        params.append(appearance)
     return torch.optim.Adam(params, lr=cfg.lrate, betas=(0.9, 0.999),
                             eps=1e-8)
 
@@ -151,7 +157,8 @@ def forward_scene(cfg: Config, nerf, mvs, batch, draws: TrainDraws,
     feat_ctx = make_feat_ctx(mvs_out, confidence, imgs[1:],
                              batch["w2cs"][1:], batch["intrinsics"][1:])
     rgb, depth = render_rays(nerf, rays, feat_ctx, batch["w2cs"][0],
-                             white_bkgd=cfg.white_bkgd)
+                             white_bkgd=cfg.white_bkgd,
+                             fast=cfg.fast_featurization)
     return rgb, depth, rays, mvs_out
 
 
@@ -244,17 +251,20 @@ def make_train_step(cfg: Config, schedule: Callable):
 
 
 def prepare_view_ctx(cfg: Config, mvs, batch, mvs_apply=None) -> Dict:
-    """Per-view render context: cascade forward + featurization inputs.
+    """Per-view render context: cascade forward + featurization inputs,
+    with ``--use_color_volume``'s volumes of ``--color_volume_depths``
+    planes (the eval render only: the train step never builds them).
     ``mvs_apply(imgs_src, affine_mat, affine_mat_inv, near, far, pad)``
     overrides the cascade forward (serving reuses cached features)."""
-    if cfg.use_color_volume:
-        raise NotImplementedError("--use_color_volume is not ported yet")
     imgs = unnormalize(batch["images"])
     near, far = batch["near_fars"][0, 0], batch["near_fars"][0, 1]
     mvs_out = run_mvs(cfg, mvs if mvs_apply is None else mvs_apply, batch)
     confidence = mvs_out["stage3"]["photometric_confidence"]
+    cv = ((batch["c2ws"][0], batch["intrinsics"][0], near, far,
+           cfg.color_volume_depths) if cfg.use_color_volume else None)
     feat_ctx = make_feat_ctx(mvs_out, confidence, imgs[1:],
-                             batch["w2cs"][1:], batch["intrinsics"][1:])
+                             batch["w2cs"][1:], batch["intrinsics"][1:],
+                             color_volume=cv)
     return dict(mvs_out=mvs_out, confidence=confidence,
                 w2cs=batch["w2cs"], intrinsics=batch["intrinsics"],
                 c2w_tgt=batch["c2ws"][0], near=near, far=far,
@@ -262,15 +272,15 @@ def prepare_view_ctx(cfg: Config, mvs, batch, mvs_apply=None) -> Dict:
 
 
 def view_chunk_fns(cfg: Config, nerf, H: int, W: int, ctx: Dict):
-    """(build_chunk, render_chunk) closures over a ``prepare_view_ctx``."""
+    """(build_chunk, render_chunk) closures over a ``prepare_view_ctx``;
+    ``ctx['jitter_draws'](pix, n)``, when set, gives a tile's [N, n]
+    uniform draws for ``--eval_jitter``."""
     planes = _stage_planes(ctx["mvs_out"], cfg.pad)
-    gen = ctx.get("jitter_generator")      # set iff cfg.eval_jitter
+    draws = ctx.get("jitter_draws")      # set iff cfg.eval_jitter
     n_cand = 3 * (cfg.N_samples // 3)
 
     def build_chunk(pix):
-        u = (None if gen is None else
-             torch.rand((pix.shape[0], n_cand), generator=gen,
-                        device=pix.device))
+        u = None if draws is None else draws(pix, n_cand)
         return build_test_rays(
             pix, H=H, W=W, intrinsic=ctx["intrinsics"][0],
             c2w=ctx["c2w_tgt"], near_ref=ctx["near"], far_ref=ctx["far"],
@@ -278,7 +288,8 @@ def view_chunk_fns(cfg: Config, nerf, H: int, W: int, ctx: Dict):
 
     def render_chunk(rays):
         return render_rays(nerf, rays, ctx["feat_ctx"], ctx["w2cs"][0],
-                           white_bkgd=cfg.white_bkgd)
+                           white_bkgd=cfg.white_bkgd,
+                           fast=cfg.fast_featurization)
 
     return build_chunk, render_chunk
 
@@ -295,7 +306,8 @@ def make_eval_render(cfg: Config, nerf, mvs, img_hw: Tuple[int, int],
         if cfg.eval_jitter:
             gen = torch.Generator(device=batch["images"].device)
             gen.manual_seed(0)
-            ctx["jitter_generator"] = gen
+            ctx["jitter_draws"] = lambda pix, n: torch.rand(
+                (pix.shape[0], n), generator=gen, device=pix.device)
         build_chunk, render_chunk = view_chunk_fns(cfg, nerf, H, W, ctx)
         rgb, depth = render_image_chunked(build_chunk, render_chunk, H, W,
                                           cfg.chunk, batch["images"].device)

@@ -14,6 +14,9 @@
   the confidence-drawn patch half against the DPT prior.
 - gradient scale-invariant loss: closed-form scale/shift alignment, then a
   gradient difference, on the other patch half.
+
+The reference's unused losses (``sl1_loss``, ``compute_depth_loss``,
+``con_cal``) follow at the end.
 """
 
 from __future__ import annotations
@@ -135,3 +138,43 @@ def total_loss(cfg, *, rgb, target_rgb, depth_pred, mvs_out, sparse_depth_ms,
         "nerf_depth": loss_nerf_depth, "mvs": loss_mvs,
         "smooth": loss_smooth, "scaleinv": loss_scaleinv,
     }
+
+
+# ------------------------------------------------------------- latent APIs
+# (defined but unused in the reference's live step; kept for API parity)
+
+def sl1_loss(depth_pred, depth_gt, mask=None):
+    """Smooth-L1 depth loss scaled by 0.5, the mean over ``mask`` when it
+    is given."""
+    per = smooth_l1(depth_pred, depth_gt)
+    if mask is not None:
+        m = mask.to(per.dtype)
+        return torch.sum(per * m) / torch.clamp(torch.sum(m), min=1.0) * 0.5
+    return torch.mean(per) * 0.5
+
+
+def _median(x):
+    """The median of all of ``x``, the mean of the two middle values for
+    an even count (numpy's and ``jnp.median``'s; ``torch.median`` takes
+    the lower one)."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.shape[0]
+    return 0.5 * (s[(n - 1) // 2] + s[n // 2])
+
+
+def compute_depth_loss(pred_depth, gt_depth):
+    """Median / mean-absolute-deviation normalized squared depth
+    difference."""
+    t_p = _median(pred_depth)
+    s_p = torch.mean(torch.abs(pred_depth - t_p))
+    t_g = _median(gt_depth)
+    s_g = torch.mean(torch.abs(gt_depth - t_g))
+    return torch.mean(((pred_depth - t_p) / s_p
+                       - (gt_depth - t_g) / s_g) ** 2)
+
+
+def con_cal(pred, gt):
+    """Min-max normalized negative per-row MSE, the reference's
+    "confidence"."""
+    c = -torch.mean((pred - gt) ** 2, dim=1)
+    return (c - c.min()) / (c.max() - c.min())

@@ -12,7 +12,8 @@ turns a reference checkpoint into that tree.
 into the port's state dicts, whose names follow the reference
 checkpoints; ``jax_params_from_state_dict`` is its inverse.  Both are
 pure transposes, so they carry gradient and Adam moment trees as well as
-weights.  BN running statistics have no counterpart: the port's BN always
+weights; ``--encode_a``'s appearance table is ``appearance`` in both, as
+it is.  BN running statistics have no counterpart: the port's BN always
 uses batch statistics.
 """
 
@@ -174,19 +175,25 @@ def mvs_state_dict_from_jax(mvs_params) -> Dict[str, np.ndarray]:
 
 def state_dict_from_jax(params_np) -> Dict[str, Dict[str, np.ndarray]]:
     """JAX params tree -> {'nerf': state dict, 'mvs': state dict} of numpy
-    arrays, for whichever of the two subtrees the tree holds."""
-    conv = {"nerf": nerf_state_dict_from_jax, "mvs": mvs_state_dict_from_jax}
+    arrays, for whichever of the two subtrees the tree holds, and its
+    ``appearance`` table as it is."""
+    conv = {"nerf": nerf_state_dict_from_jax, "mvs": mvs_state_dict_from_jax,
+            "appearance": np.asarray}
     return {k: conv[k](v) for k, v in params_np.items() if k in conv}
 
 
 def jax_params_from_state_dict(state_dicts) -> Dict:
-    """{'nerf': state dict, 'mvs': state dict} (tensors or numpy arrays,
-    either key may be absent) -> the JAX params tree of numpy arrays: the
-    inverse of ``state_dict_from_jax``."""
+    """{'nerf': state dict, 'mvs': state dict, 'appearance': table}
+    (tensors or numpy arrays, any key may be absent) -> the JAX params
+    tree of numpy arrays: the inverse of ``state_dict_from_jax``."""
     tree: Dict = {}
     for name, sd in state_dicts.items():
+        if name == "appearance":
+            tree[name] = _to_jax_layout(sd, None)
+            continue
         if name not in ("nerf", "mvs"):
-            raise KeyError(f"unknown state dict {name!r} (nerf, mvs)")
+            raise KeyError(f"unknown state dict {name!r} (nerf, mvs, "
+                           f"appearance)")
         n = _count_in_state_dict(name, sd)
         for j, t, s in _pairs(name, n):
             _set(tree, (name,) + j, _to_jax_layout(sd[t], s))
@@ -200,14 +207,18 @@ STATE_FILE = "train_state.pt"
 ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
 
 
-def params_tree(nerf, mvs) -> Dict:
-    """The modules' weights as the JAX params tree of numpy arrays."""
-    return jax_params_from_state_dict({"nerf": nerf.state_dict(),
-                                       "mvs": mvs.state_dict()})
+def params_tree(nerf, mvs, appearance=None) -> Dict:
+    """The modules' weights (and ``--encode_a``'s table, when given) as the
+    JAX params tree of numpy arrays."""
+    sds = {"nerf": nerf.state_dict(), "mvs": mvs.state_dict()}
+    if appearance is not None:
+        sds["appearance"] = appearance
+    return jax_params_from_state_dict(sds)
 
 
 def checkpoint_params(path: str) -> Dict[str, Dict[str, np.ndarray]]:
-    """A native checkpoint's weights as {'nerf', 'mvs'} state dicts."""
+    """A native checkpoint's weights as {'nerf', 'mvs'} state dicts (and
+    ``'appearance'`` when it holds the table)."""
     return state_dict_from_jax(load_params_npz(os.path.join(path,
                                                             PARAMS_FILE)))
 
@@ -234,7 +245,7 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 0) -> str:
     path = os.path.join(ckpt_dir, name)
     tmp = tempfile.mkdtemp(prefix=f".{name}.", dir=ckpt_dir)
     try:
-        save_params_npz(params_tree(state.nerf, state.mvs),
+        save_params_npz(params_tree(state.nerf, state.mvs, state.appearance),
                         os.path.join(tmp, PARAMS_FILE))
         torch.save({"step": int(step),
                     "optimizer": state.optimizer.state_dict(),
@@ -274,6 +285,12 @@ def load_checkpoint(path: str, state):
     for module, key in ((state.nerf, "nerf"), (state.mvs, "mvs")):
         module.load_state_dict({k: torch.from_numpy(v)
                                 for k, v in sd[key].items()}, strict=True)
+    if (state.appearance is not None) != ("appearance" in sd):
+        raise ValueError(f"{path}: a full resume keeps --encode_a as the "
+                         f"saved run had it")
+    if state.appearance is not None:
+        with torch.no_grad():
+            state.appearance.copy_(torch.from_numpy(sd["appearance"]))
     state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
     return state
@@ -323,7 +340,9 @@ def convert_reference_checkpoint(path: str) -> Dict:
 def load_params(cfg, device) -> Dict[str, Dict]:
     """The weights of ``--seed`` and ``--ckpt`` (``load_eval_params`` of
     the JAX package): drawn from ``--seed`` with the JAX package's init
-    laws, then replaced by the subtrees the checkpoint holds:
+    laws, then replaced by the subtrees the checkpoint holds (a reference
+    checkpoint holds no appearance table, so ``--encode_a``'s keeps its
+    drawn value):
     - ``x.npz``: the JAX package's '/'-keyed params layout;
     - a native checkpoint directory (``save_checkpoint``): its params;
     - a JAX orbax checkpoint directory raises, naming

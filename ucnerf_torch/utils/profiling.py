@@ -3,11 +3,13 @@
 - ``trace(logdir)``: ``torch.profiler`` over the block (the host and, on a
   card, the device), written as a chrome trace into ``logdir``.
 - ``RateMeter``: running rays/s counter.
+- ``checked(fn)``: ``fn`` that raises at the first operation making a NaN.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 
@@ -51,3 +53,31 @@ class RateMeter:
     @property
     def rate(self) -> float:
         return self._rate or 0.0
+
+
+def checked(fn):
+    """``fn`` wrapped so that a call raises FloatingPointError at the first
+    torch function or tensor operation whose floating output holds a NaN,
+    naming it: the float checks of the JAX package's ``checkify`` wrapper.
+    Its index checks need no wrapper here: an out-of-bounds index raises
+    in torch itself (IndexError on the CPU, a device-side assert on the
+    card)."""
+    from torch.overrides import TorchFunctionMode
+    from torch.utils._pytree import tree_leaves
+
+    class NaNCheck(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                        and bool(torch.isnan(t).any())):
+                    name = getattr(func, "__name__", func)
+                    raise FloatingPointError(f"NaN produced by {name}")
+            return out
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with NaNCheck():
+            return fn(*args, **kwargs)
+
+    return wrapper
