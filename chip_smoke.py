@@ -26,7 +26,16 @@ converts seeded DPT-Hybrid and LPIPS weights through ``python -m
 ucnerf_torch.convert_weights``, runs ``python -m ucnerf_torch.preprocess
 dpt`` over that scan in f32 and bf16 and ``seg`` on two of its frames,
 holds the card's DPT against its CPU forward, and evaluates the scan's
-checkpoint with the converted LPIPS weights.  Which parts of a train
+checkpoint with the converted LPIPS weights.  Phase ``mesh`` runs the
+multi-rank port (``ucnerf_torch/parallel``) through the entry points on
+ranks that share the one card (gloo): the collectives forward and
+backward on a one-rank NCCL group; every step of 2-rank ray-DP
+(plain, an odd ray count, ``--shard_mvs_views``), 2-rank scene-DP and
+the 2x2 grid on 4 ranks against the serial step at the same weights,
+the trainer's runs of the three modes, a ray-DP resume bit for bit,
+a 2-rank ``--eval`` against one device's view by view, ``serve`` in
+batch and HTTP mode and ``render_path`` on 2 ranks.  Which parts of a
+train
 step vary run to run on the card's default kernels is measured on demand
 by ``scripts/determinism_probe.py``, the DPT forward's backend settings
 by ``scripts/dpt_probe.py``.
@@ -35,13 +44,14 @@ by ``scripts/dpt_probe.py``.
 
 Phases (one line each): device, build, k1 (K1 vs plain), serving, http,
 render_path, resume, panels, store_vs_host, train, options (four lines),
-scared, preprocess, then the seconds of each.
+scared, preprocess, mesh, then the seconds of each.
 Any failed check raises, so the script exits non-zero and prints no
 result.  Before the last line it prints the card's ``nvidia-smi`` name and
 power limit and one JSON line with every kernel of the main path (K1's
 launches summed over serving, HTTP, render_path, the eval, phase options'
 literal ``--eval`` and colour-volume request, phase scared's eval and
-request, and phase preprocess's eval); the last line is
+request, phase preprocess's eval, and every rank's launches in phase
+mesh); the last line is
 ``{"ok": true, "device": {...}}``.  Frames, panels, the trainer runs'
 stdout and directories (their checkpoints are deleted once checked),
 profiles and a JSON record go to ``chiprun_out/chip_smoke/`` beside this
@@ -1901,6 +1911,748 @@ def phase_preprocess(dev, sd: dict) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase mesh
+# every mode on ranks that share the one card (gloo), and the collectives
+# on a one-rank NCCL group; at the train point on the serving scene (the
+# registry's synthetic scene: spawned ranks do not see bench_scene)
+MESH_ARGS = [*SERVE_ARGS, *TRAIN_POINT]
+MESH_STEPS = 4
+MESH_GRID_STEPS = 2
+MESH_RESUME_STOP = 2
+MESH_TIMEOUT = 300          # s for each set of spawned ranks
+MESH_FRAMES = 4             # render_path's frames on the mesh
+# each multi-rank step against the serial step at the same weights,
+# scenes and draws: ray-DP's loss (rel); the view split, scene-DP and the
+# grid reorder sums, so the JAX package's own bound for them
+# (tests/test_parallel_views.py, test_parallel.py, test_parallel_grid.py);
+# each gradient tensor's max abs difference over its max abs
+# (test_parallel.py::test_scene_dp_8dev_grads_match_vmap_serial)
+MESH_RAY_LOSS_RTOL = 1e-5
+MESH_SCENE_LOSS_RTOL = 1e-4
+MESH_GRAD_RTOL = 1e-1
+# the per-step cases: (name, flags, steps)
+MESH_CASES = (("rays", [], MESH_STEPS),
+              ("rays_odd", ["--batch_size", "2001"], MESH_STEPS),
+              ("views", ["--shard_mvs_views"], MESH_STEPS),
+              ("scenes", ["--parallel_mode", "scenes"], MESH_STEPS))
+MESH_GRID = ["--mesh_shape", "2", "2", "--mesh_axes", "data", "rays",
+             "--parallel_mode", "grid"]
+# a sharded frame against the single-device frame where they are not bit
+# for bit: tests/test_parallel.py's rtol / atol
+MESH_FRAME_TOL = (1e-4, 1e-5)
+MESH_RUNS = ("m_serial", "m_halves", "m_rays", "m_scenes", "m_grid",
+             "m_part", "m_resumed", "m_eval", "m_eval1")
+ALLREDUCE_REPS = 10
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def nccl_collectives(mesh) -> dict:
+    """On a one-rank NCCL group: every collective of
+    ``parallel/collectives.py`` forward and backward, which must give its
+    input back and exact gradients."""
+    from ucnerf_torch.parallel import collectives as col
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(3024, 3, device=dev, generator=gen, requires_grad=True)
+    g = torch.randn(3024, 3, device=dev, generator=gen)
+    out = {}
+    for name, fn in (("all_gather", col.all_gather),
+                     ("all_reduce_sum", col.all_reduce_sum)):
+        x.grad = None
+        y = fn(x, mesh.group())
+        y.backward(g)
+        out[name] = dict(forward_exact=bool(torch.equal(y, x)),
+                         grad_exact=bool(torch.equal(x.grad, g)))
+    p = torch.nn.Parameter(torch.randn(1000, device=dev, generator=gen))
+    p.grad = torch.randn(1000, device=dev, generator=gen)
+    want = p.grad.clone()
+    col.average_gradients([p], mesh.group())
+    out["average_gradients"] = dict(exact=bool(torch.equal(p.grad, want)))
+    t = torch.arange(17.0, device=dev)
+    out["broadcast"] = dict(exact=bool(torch.equal(
+        col.broadcast_(t.clone(), mesh.group()), t)))
+    m = col.mean_metrics({"loss": torch.tensor(0.25, device=dev)},
+                         mesh.group())
+    out["mean_metrics"] = dict(exact=float(m["loss"]) == 0.25)
+    out["frame_rows"] = dict(exact=bool(torch.equal(
+        col.gather_rows(g, mesh.group()), g)))
+    return dict(backend=mesh.backend, checks=out)
+
+
+def mesh_steps(mesh, cases) -> dict:
+    """For each (name, argv, steps) of ``cases``: that many multi-rank
+    train steps (``make_parallel_train_step``'s loss and gradient mean)
+    from the seed's weights, with the trainer's shuffle, samples and
+    draws.  Before each, rank 0 computes the serial step's loss and
+    gradients (``scene_loss`` of each of the step's scenes, their mean) at
+    the same weights.  Per case and step: both losses, the gradients'
+    worst and median rel difference, and the multi-rank step's ms (the
+    serial work excluded)."""
+    from ucnerf_torch.config import parse_config
+    from ucnerf_torch.data import build_dataset
+    from ucnerf_torch.data.device_store import (build_store, gather_batch,
+                                                sample_indices)
+    from ucnerf_torch.models.factory import create_models
+    from ucnerf_torch.ops.rays import draw_train_randomness
+    from ucnerf_torch.parallel.collectives import average_gradients
+    from ucnerf_torch.parallel.sharding import (parallel_loss, scene_slot,
+                                                scenes_per_step)
+    from ucnerf_torch.render.serving import to_device_batch
+    from ucnerf_torch.train.__main__ import step_generator
+    from ucnerf_torch.train.loop import (TrainState, make_lr_schedule,
+                                         make_optimizer, make_train_step,
+                                         scene_loss)
+    from ucnerf_torch.utils.checkpoint_io import load_params
+
+    dev = mesh.device
+    out = {}
+    for name, argv, steps in cases:
+        cfg = parse_config(argv)
+        ds = build_dataset(cfg, "train")
+        store = build_store(ds, dev)
+        nerf, mvs = create_models(cfg, dev, load_params(cfg, dev))
+        state = TrainState(nerf, mvs, make_optimizer(cfg, nerf, mvs))
+        trained = [p for g in state.optimizer.param_groups
+                   for p in g["params"]]
+        n, slot = scenes_per_step(cfg, mesh), scene_slot(cfg, mesh)
+        reduced = []
+
+        def reduce(params):
+            average_gradients(params, mesh.group())
+            reduced[:] = [p.grad.clone() for p in params]
+        step = make_train_step(cfg, make_lr_schedule(cfg, len(ds)),
+                               loss_fn=parallel_loss(cfg, mesh),
+                               reduce_grads=reduce)
+        W, H = ds.img_wh
+        kw = dict(H=H, W=W, patch_size=cfg.patch_size,
+                  patch_num=cfg.patch_num, n_uniform=cfg.n_uniform_rays,
+                  n_rays=cfg.n_train_rays, n_samples=cfg.N_samples)
+        ds.set_epoch(0)
+        order = np.random.default_rng(np.random.SeedSequence(
+            [cfg.seed % 2 ** 32, 1])).permutation(len(ds))
+        rows = []
+        for k in range(steps):
+            batches = [gather_batch(store, to_device_batch(
+                sample_indices(ds, int(j)), dev))
+                for j in order[k * n:(k + 1) * n]]
+            draws = [draw_train_randomness(step_generator(
+                cfg.seed, k, dev, None if n == 1 else s), **kw)
+                for s in range(n)]
+            if mesh.is_main:
+                state.optimizer.zero_grad(set_to_none=True)
+                losses = []
+                for b, d in zip(batches, draws):
+                    loss, _ = scene_loss(cfg, nerf, mvs, b, d)
+                    (loss / n).backward()
+                    losses.append(float(loss.detach()))
+                serial = [torch.zeros_like(p) if p.grad is None
+                          else p.grad.clone() for p in trained]
+            sync(dev)
+            t0 = time.perf_counter()
+            m = step(state, batches[slot], draws[slot])
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            if mesh.is_main:
+                rels = [float((a - b).abs().max() / max(
+                    a.abs().max(), b.abs().max(), 1e-10))
+                    for a, b in zip(reduced, serial)]
+                rows.append(dict(loss=float(m["loss"]),
+                                 serial_loss=float(np.mean(losses)),
+                                 grad_worst=max(rels),
+                                 grad_median=float(np.median(rels)),
+                                 ms=ms))
+        out[name] = rows
+    return out
+
+
+def allreduce_ms(mesh, numel: int) -> float:
+    """ms of one all-reduce of ``numel`` float32 on the card over the
+    mesh's backend, the ranks lined up by a barrier first (the step's
+    gradient all-reduce also waits for the slower rank)."""
+    import torch.distributed as dist
+    buf = torch.ones(numel, device=mesh.device)
+    dist.all_reduce(buf)
+    sync(mesh.device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(ALLREDUCE_REPS):
+        dist.all_reduce(buf)
+    sync(mesh.device)
+    return (time.perf_counter() - t0) * 1e3 / ALLREDUCE_REPS
+
+
+def mesh_rank_work(mesh, plan) -> list:
+    """On every rank, each (kind, argv) of ``plan`` in order: ``steps``
+    (``mesh_steps`` of the cases in argv), ``allreduce`` (``allreduce_ms``
+    of argv floats), or an entry point's ``main(argv)`` run on this rank
+    of the mesh (``train``, ``eval`` (train recording every frame its
+    validator renders), ``serve``, ``render_path``), with this rank's K1
+    count set to 0 before it.  Rank 0 returns per item: the result, its
+    JSON lines, every rank's K1 launches and wall s."""
+    from ucnerf_torch import render_path, serve
+    from ucnerf_torch.train import __main__ as train_cli
+
+    mains = dict(train=train_cli.main, eval=train_cli.main,
+                 serve=serve.main, render_path=render_path.main)
+    out = []
+    with recorded_eval_frames() as frames:
+        for kind, argv in plan:
+            out.append(rank_item(mesh, kind, argv, mains, frames))
+    return out if mesh.is_main else None
+
+
+def rank_item(mesh, kind, argv, mains, frames) -> dict:
+    """One item of ``mesh_rank_work``'s plan on this rank."""
+    from ucnerf_torch.kernels.fused_mlp import fused_nerf_mlp
+    from ucnerf_torch.parallel.collectives import gather_rows
+    frames.clear()
+    fused_nerf_mlp.launches = 0
+    buf = io.StringIO()
+    sync(mesh.device)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        if kind == "steps":
+            result = mesh_steps(mesh, argv)
+        elif kind == "allreduce":
+            result = allreduce_ms(mesh, argv)
+        else:
+            result = mains[kind](argv)
+    sync(mesh.device)
+    wall = time.perf_counter() - t0
+    launches = gather_rows(torch.tensor(
+        [float(fused_nerf_mlp.launches)], device=mesh.device),
+        mesh.group())
+    return dict(result=result, wall_s=wall,
+                k1_launches=[int(v) for v in launches.tolist()],
+                lines=[json.loads(ln) for ln in buf.getvalue().splitlines()
+                       if ln.startswith("{")],
+                frames=list(frames) if kind == "eval" else None)
+
+
+@contextlib.contextmanager
+def rays_rendered_in_halves():
+    """In the block, the serial step's loss renders its rays in two halves
+    and concatenates them, as the two ranks of ray-DP do: the same
+    function, with only the order of the gradients' sums changed."""
+    from ucnerf_torch.parallel.sharding import shard_rays
+    from ucnerf_torch.render.renderer import make_feat_ctx, render_rays
+    from ucnerf_torch.train import loop
+    plain = loop.scene_loss
+
+    def halves(cfg, nerf, mvs, batch, draws):
+        imgs, mvs_out, confidence, rays = loop.scene_inputs(
+            cfg, mvs, batch, draws, train=True)
+        n = rays["rays_o"].shape[0]
+        feat_ctx = make_feat_ctx(mvs_out, confidence, imgs[1:],
+                                 batch["w2cs"][1:], batch["intrinsics"][1:])
+        parts = [render_rays(nerf, shard_rays(rays, n, 2, r), feat_ctx,
+                             batch["w2cs"][0], white_bkgd=cfg.white_bkgd,
+                             fast=cfg.fast_featurization) for r in range(2)]
+        rgb = torch.cat([p[0] for p in parts])[:n]
+        depth = torch.cat([p[1] for p in parts])[:n]
+        return loop.scene_loss_terms(cfg, batch, rgb, depth, rays, mvs_out)
+    loop.scene_loss = halves
+    try:
+        yield
+    finally:
+        loop.scene_loss = plain
+
+
+@contextlib.contextmanager
+def recorded_eval_frames():
+    """Every frame that the validator's eval render gives in the block, as
+    numpy, in the yielded list."""
+    from ucnerf_torch.train import validation
+    frames = []
+    make = validation.make_eval_render
+
+    def recording(*a, **k):
+        render = make(*a, **k)
+
+        def render_view(batch):
+            got = render(batch)
+            frames.append([t.cpu().numpy() for t in got])
+            return got
+        return render_view
+    validation.make_eval_render = recording
+    try:
+        yield frames
+    finally:
+        validation.make_eval_render = make
+
+
+@contextlib.contextmanager
+def stdout_to(path: Path):
+    """Point file descriptor 1 at ``path`` for the block, so that the
+    spawned ranks (which inherit it) print there."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as fh:
+        os.dup2(fh.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def ckpt_params(name: str, step: int) -> dict:
+    from ucnerf_torch.utils.checkpoint_io import load_params_npz
+    return load_params_npz(str(OUT_DIR / name / "ckpts" / f"step_{step:08d}"
+                               / "params.npz"))
+
+
+def flat_arrays(tree: dict) -> list:
+    return [v for k in sorted(tree) for v in (
+        flat_arrays(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
+def params_rel(got: dict, want: dict) -> float:
+    """max |got - want| over max |want|, over every tensor."""
+    g, w = flat_arrays(got), flat_arrays(want)
+    return float(max(np.abs(a - b).max() for a, b in zip(g, w))
+                 / max(np.abs(b).max() for b in w))
+
+
+def step_ms(lines) -> float:
+    return float(np.median([ln["ms"] for ln in step_lines(lines)[1:]]))
+
+
+def comm_ms(lines) -> dict:
+    """Median per step of the collectives' ms (the gather of the per-ray
+    outputs with its backward; the gradient all-reduce, which includes
+    the wait for the slower rank)."""
+    rows = [ln["collectives"] for ln in step_lines(lines)[1:]]
+    return dict(
+        gather_ms=float(np.median([r.get("gather_ms", 0.0)
+                                   + r.get("gather_grad_ms", 0.0)
+                                   for r in rows])),
+        grad_allreduce_ms=float(np.median([r["grad_allreduce_ms"]
+                                           for r in rows])),
+        other_ms=float(np.median([sum(v for k, v in r.items() if k not in (
+            "gather_ms", "gather_grad_ms", "grad_allreduce_ms"))
+            for r in rows])))
+
+
+def single_eval_frames(argv) -> tuple:
+    """``--eval`` on one device: (its JSON lines, every view it renders)."""
+    from ucnerf_torch.train import __main__ as train_cli
+    buf = io.StringIO()
+    with recorded_eval_frames() as frames, contextlib.redirect_stdout(buf):
+        train_cli.main(argv)
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")], frames
+
+
+def frames_agree(got, want) -> dict:
+    """Bit for bit, else the largest excess over MESH_FRAME_TOL."""
+    exact = all(np.array_equal(g, w) for g, w in zip(got, want))
+    rtol, atol = MESH_FRAME_TOL
+    excess = max(float((np.abs(g - w) - (atol + rtol * np.abs(w))).max())
+                 for g, w in zip(got, want))
+    return dict(bitwise=exact, within_tol=exact or excess <= 0.0,
+                **frame_diff(got, want))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def group_processes(pgid: int, wait_s: float = 20.0) -> list:
+    """The processes still in process group ``pgid`` after up to
+    ``wait_s`` (multiprocessing's resource tracker leaves a moment after
+    its parent): [(pid, command)]."""
+    t0 = time.perf_counter()
+    while True:
+        left = []
+        for d in Path("/proc").iterdir():
+            if not d.name.isdigit():
+                continue
+            try:
+                stat = (d / "stat").read_text()
+                fields = stat[stat.rindex(")") + 2:].split()
+                if int(fields[2]) == pgid and fields[0] != "Z":
+                    left.append((int(d.name), (d / "cmdline").read_bytes()
+                                 .replace(b"\0", b" ").decode()[:200]))
+            except (OSError, ValueError):
+                continue
+        if not left or time.perf_counter() - t0 > wait_s:
+            return left
+        time.sleep(0.5)
+
+
+def mesh_http(poses) -> dict:
+    """``python -m ucnerf_torch.serve --port P --mesh_shape 2`` as its own
+    process group (the entry point spawns its ranks): /health, a render of
+    each pose, a malformed request (400), a render and /health again,
+    then a SIGINT to the command, after which it and both ranks must be
+    gone with exit code 0."""
+    import signal
+    import urllib.error
+    import urllib.request
+    port = free_port()
+    log_path = OUT_DIR / "m_http_stdout.txt"
+    with open(log_path, "w") as fh:
+        # TF32 off in cuDNN and cuBLAS, as in this process
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ucnerf_torch.serve", "--port", str(port),
+             "--mesh_shape", "2", *SERVE_ARGS], cwd=ROOT, stdout=fh,
+            stderr=subprocess.STDOUT, start_new_session=True,
+            env={**os.environ, "NVIDIA_TF32_OVERRIDE": "0"})
+    url = f"http://127.0.0.1:{port}"
+    try:
+        t0 = time.perf_counter()
+        while True:
+            check(proc.poll() is None, f"mesh serve exited with "
+                  f"{proc.returncode}: {log_path.read_text()[-2000:]}")
+            check(time.perf_counter() - t0 < MESH_TIMEOUT,
+                  "mesh serve did not come up")
+            try:
+                with urllib.request.urlopen(url + "/health",
+                                            timeout=60) as r:
+                    health = [r.status, json.loads(r.read())]
+                break
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+
+        def post(body: bytes):
+            t1 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(urllib.request.Request(
+                        url + "/render", data=body), timeout=300) as r:
+                    return r.status, r.read(), (time.perf_counter() - t1) * 1e3
+            except urllib.error.HTTPError as e:
+                return e.code, e.read(), (time.perf_counter() - t1) * 1e3
+        frames, ms = [], []
+        for c2w in poses:
+            code, payload, t = post(json.dumps(
+                {"c2w": np.asarray(c2w).tolist()}).encode())
+            check(code == 200, f"mesh POST /render: {code}")
+            with np.load(io.BytesIO(payload)) as f:
+                frames.append([f[k] for k in FRAME_KEYS])
+            ms.append(t)
+        bad = post(b'{"c2w": [[1, 2], [3, 4]]}')[0]
+        after = post(json.dumps({"c2w": np.asarray(poses[0]).tolist()})
+                     .encode())[0]
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health2 = r.status
+    finally:
+        os.kill(proc.pid, signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            rc = proc.wait()
+    left = group_processes(proc.pid)
+    text = log_path.read_text()
+    return dict(health=health, health_after=health2, bad_status=bad,
+                after_bad_status=after, frames=frames, ms=ms, up_s=up_s,
+                rc=rc, processes_left=left,
+                clean_shutdown="shut down 2 ranks" in text)
+
+
+def phase_mesh(dev, sv: dict, smi: str) -> dict:
+    """``mesh_body``; its checkpoints and frame files are deleted after it
+    whatever happens, and a failing run prints what it had measured.  Its
+    line names the card and its power limit (``smi``): the times are of
+    ranks that share it."""
+    res = {"nvidia_smi": smi}
+    try:
+        mesh_body(dev, sv, res)
+    except BaseException:
+        log("mesh_partial", **res)
+        raise
+    finally:
+        for name in MESH_RUNS:
+            shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
+        for f in ("m_frame_0.npz", "m_frame_1.npz", "m_render_path.npz"):
+            (OUT_DIR / f).unlink(missing_ok=True)
+    log("mesh", **res)
+    return res
+
+
+def mesh_body(dev, sv: dict, res: dict):
+    """Multi-rank training, rendering and serving with ranks that share
+    the one card (gloo), and the collectives on a one-rank NCCL group.
+    Five sets of ranks: NCCL; ``python -m ucnerf_torch.train
+    --mesh_shape 2`` as users run it (the ray-DP run the others are held
+    to); two ranks that run in turn every step of ray-DP (plain, an odd
+    ray count, --shard_mvs_views) and scene-DP against the serial step at
+    the same weights (``mesh_steps``), then the entry points on the rank
+    (the trainer in scene-DP, a stop and its resume, --eval, serve's batch
+    mode, render_path); a 2x2 grid of four ranks (its steps, then the
+    trainer); and serve's HTTP mode as its own command.  The uninterrupted
+    ray-DP run is reported beside the serial run, with the serial run
+    whose rays render in halves as the witness of how far a change in the
+    order of the gradients' sums alone carries through Adam's steps; at
+    step 1, from equal weights, both are checked.  These times are of ranks sharing one card, not
+    a scaling measurement."""
+    from ucnerf_torch import serve
+    from ucnerf_torch.config import parse_config
+    from ucnerf_torch.data import build_dataset
+    from ucnerf_torch.parallel import launch
+    from ucnerf_torch.train import __main__ as train_cli
+    from ucnerf_torch.utils.platform import deterministic_kernels
+
+    cfg = parse_config(MESH_ARGS)
+    W, H = cfg.img_wh
+    half = -(-W * H // cfg.chunk) // 2        # each rank's tiles a frame
+    det = ["--deterministic"]
+    stop = ["--stop_after_steps", str(MESH_STEPS)]
+
+    def run_dir(name):
+        shutil.rmtree(OUT_DIR / name, ignore_errors=True)
+        return ["--basedir", str(OUT_DIR), "--expname", name]
+
+    # 1. the collectives on a one-rank NCCL group
+    nccl = launch.run_ranks("chip_smoke:nccl_collectives", (), (1,),
+                            ("data",), "cuda", timeout=MESH_TIMEOUT)[0]
+    res["nccl"] = nccl
+    check(nccl["backend"] == "nccl" and all(
+        all(v.values()) for v in nccl["checks"].values()),
+        f"NCCL one-rank collectives: {nccl}")
+
+    # 2. the serial references, in this process: 4 steps, and --eval of
+    # their checkpoint view by view
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main([*MESH_ARGS, *run_dir("m_serial"), *det, *stop])
+    s_lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+               if ln.startswith("{")]
+    # ... and the same run with its rays rendered in halves: the order of
+    # the gradients' sums alone changes, as it does on the mesh
+    buf = io.StringIO()
+    with rays_rendered_in_halves(), contextlib.redirect_stdout(buf):
+        train_cli.main([*MESH_ARGS, *run_dir("m_halves"), *det, *stop])
+    h_lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+               if ln.startswith("{")]
+    ckpt = str(OUT_DIR / "m_serial" / "ckpts" / f"step_{MESH_STEPS:08d}")
+    ev = [*MESH_ARGS, "--eval", "--ckpt", ckpt, "--val_panels", "none", *det]
+    e1_lines, one_frames = single_eval_frames([*ev, *run_dir("m_eval1")])
+
+    # 3. the trainer as users run it: 4 ray-DP steps on 2 ranks, spawned
+    # by the entry point (its ranks print to m_rays_stdout.txt)
+    out = OUT_DIR / "m_rays_stdout.txt"
+    launch.last_stats.clear()
+    t0 = time.perf_counter()
+    with stdout_to(out):
+        summary = train_cli.main([*MESH_ARGS, *run_dir("m_rays"), *det,
+                                  "--mesh_shape", "2", *stop],
+                                 timeout=MESH_TIMEOUT)
+    r_wall = time.perf_counter() - t0
+    r_stats = list(launch.last_stats)
+    r_lines = [json.loads(ln) for ln in out.read_text().splitlines()
+               if ln.startswith("{")]
+
+    # 4. two ranks: every step against the serial one, then the entry
+    # points on the ranks
+    ds = build_dataset(cfg, "val")
+    poses = [np.asarray(ds.scene[ds.metas[i][0]]["c2ws"][ds.metas[i][1]],
+                        np.float32) for i in range(2)]
+    reqs = OUT_DIR / "m_requests.jsonl"
+    outs = [OUT_DIR / f"m_frame_{i}.npz" for i in range(2)]
+    reqs.write_text("".join(json.dumps({"c2w": p.tolist(), "out": str(o)})
+                            + "\n" for p, o in zip(poses, outs)))
+    mesh2 = ["--mesh_shape", "2"]
+    n_params = sum(a.size for a in flat_arrays(
+        ckpt_params("m_serial", MESH_STEPS)))
+    plan = [
+        ("steps", [(name, [*MESH_ARGS, *mesh2, *flags], n)
+                   for name, flags, n in MESH_CASES]),
+        ("allreduce", n_params),
+        ("train", [*MESH_ARGS, *run_dir("m_scenes"), *det, *mesh2,
+                   "--parallel_mode", "scenes", *stop]),
+        ("train", [*MESH_ARGS, *run_dir("m_part"), *det, *mesh2,
+                   "--stop_after_steps", str(MESH_RESUME_STOP)]),
+        ("train", [*MESH_ARGS, *run_dir("m_resumed"), *det, *mesh2, *stop,
+                   "--ckpt", str(OUT_DIR / "m_part" / "ckpts"
+                                 / f"step_{MESH_RESUME_STOP:08d}")]),
+        ("eval", [*ev, *run_dir("m_eval"), *mesh2]),
+        ("serve", ["--requests", str(reqs), *SERVE_ARGS, *mesh2]),
+        ("render_path", ["--traj", "interp", "--n_frames", str(MESH_FRAMES),
+                         "--out", str(OUT_DIR / "m_render_path.npz"),
+                         *SERVE_ARGS, *mesh2])]
+    grid_plan = [
+        ("steps", [("grid", [*MESH_ARGS, *MESH_GRID], MESH_GRID_STEPS)]),
+        ("train", [*MESH_ARGS, *run_dir("m_grid"), *det, *MESH_GRID,
+                   "--stop_after_steps", str(MESH_GRID_STEPS)])]
+    with deterministic_kernels():
+        t0 = time.perf_counter()
+        two = launch.run_ranks("chip_smoke:mesh_rank_work", (plan,), (2,),
+                               ("data",), "cuda", timeout=MESH_TIMEOUT)[0]
+        two_wall = time.perf_counter() - t0
+        two_stats = list(launch.last_stats)
+        t0 = time.perf_counter()
+        four = launch.run_ranks("chip_smoke:mesh_rank_work", (grid_plan,),
+                                (2, 2), ("data", "rays"), "cuda",
+                                timeout=MESH_TIMEOUT)[0]
+        four_wall = time.perf_counter() - t0
+        four_stats = list(launch.last_stats)
+        renderer, _ = serve.build_renderer(parse_config(SERVE_ARGS))
+        single = [renderer.render_np(p) for p in poses]
+        del renderer
+    steps_two, gloo_ms, scenes, part, resumed, evm, served, rp = two
+    steps_four, grid = four
+    res["ranks"] = dict(
+        rays_cli_wall_s=r_wall, two_rank_wall_s=two_wall,
+        grid_wall_s=four_wall,
+        peak_mem_gib=dict(rays_cli=[s["peak_mem_bytes"] / 2 ** 30
+                                    for s in r_stats],
+                          two_rank=[s["peak_mem_bytes"] / 2 ** 30
+                                    for s in two_stats],
+                          grid=[s["peak_mem_bytes"] / 2 ** 30
+                                for s in four_stats]))
+
+    # every mode's steps against the serial step at the same weights
+    per_step = {}
+    for name, rows in {**steps_two["result"], **steps_four["result"]}.items():
+        rtol = (MESH_RAY_LOSS_RTOL if name in ("rays", "rays_odd")
+                else MESH_SCENE_LOSS_RTOL)
+        rel = [abs(r["loss"] - r["serial_loss"]) / abs(r["serial_loss"])
+               for r in rows]
+        per_step[name] = dict(
+            loss=[r["loss"] for r in rows],
+            serial_loss=[r["serial_loss"] for r in rows], loss_rel=rel,
+            grad_worst=[r["grad_worst"] for r in rows],
+            grad_median=[r["grad_median"] for r in rows],
+            ms_per_step=float(np.median([r["ms"] for r in rows[1:]])),
+            loss_rtol=rtol)
+    res["per_step"] = per_step
+    for name, p in per_step.items():
+        check(max(p["loss_rel"]) <= p["loss_rtol"]
+              and max(p["grad_worst"]) <= MESH_GRAD_RTOL,
+              f"{name} steps vs serial: {p}")
+
+    # the trainer's runs of each mode: their steps are the checked ones
+    runs = {}
+    for name, lines, ref, extra in (
+            ("m_rays", r_lines, "rays", dict(wall_s=r_wall)),
+            ("m_scenes", scenes["lines"], "scenes",
+             dict(wall_s=scenes["wall_s"])),
+            ("m_grid", grid["lines"], "grid", dict(wall_s=grid["wall_s"]))):
+        got = [ln["loss"] for ln in step_lines(lines)]
+        summ = lines[-1]
+        runs[name] = dict(loss=got, equals_checked_steps=(
+            got == per_step[ref]["loss"]), ms_per_step=step_ms(lines),
+            collectives=comm_ms(lines), world_size=summ["world_size"],
+            backend=summ["backend"], **extra)
+    # the uninterrupted runs drift apart through Adam's updates: the mesh's
+    # and the serial run with its rays in halves, each against the serial
+    serial_loss = [ln["loss"] for ln in step_lines(s_lines)]
+    drift = {}
+    for name, got in (("m_rays", runs["m_rays"]["loss"]), (
+            "m_halves", [ln["loss"] for ln in step_lines(h_lines)])):
+        drift[name] = dict(
+            loss=got, loss_rel=[abs(g - w) / abs(w)
+                                for g, w in zip(got, serial_loss)],
+            params_rel=params_rel(ckpt_params(name, MESH_STEPS),
+                                  ckpt_params("m_serial", MESH_STEPS)))
+    runs["m_rays"]["uninterrupted_vs_serial"] = dict(
+        serial_loss=serial_loss, serial_ms_per_step=step_ms(s_lines),
+        **drift)
+    # the first step starts from the same weights: the same loss
+    check(all(len(d["loss_rel"]) == MESH_STEPS
+              and d["loss_rel"][0] <= MESH_RAY_LOSS_RTOL
+              for d in drift.values()),
+          f"uninterrupted runs vs serial at step 1: {drift}")
+    runs["gloo_allreduce_ms"] = dict(floats=n_params, ms=gloo_ms["result"])
+    res["train"] = runs
+    for name, ref in (("m_rays", "rays"), ("m_scenes", "scenes"),
+                      ("m_grid", "grid")):
+        got, want = runs[name]["loss"], per_step[ref]["loss"]
+        check(len(got) == len(want) and all(
+            abs(g - c) <= MESH_RAY_LOSS_RTOL * abs(c)
+            for g, c in zip(got, want))
+            and runs[name]["world_size"] == (4 if ref == "grid" else 2),
+            f"{name}: the trainer's steps are not the checked ones: "
+            f"{runs[name]}")
+    check(summary["world_size"] == 2 and summary["backend"] == "gloo",
+          f"m_rays summary: {summary}")
+
+    # 5. the ray-DP resume against the uninterrupted run
+    keys = ("loss", "img_mse", "nerf_depth", "mvs", "smooth", "scaleinv",
+            "psnr", "lr")
+    rs, us = step_lines(resumed["lines"]), step_lines(r_lines)[
+        MESH_RESUME_STOP:]
+    res["resume"] = dict(
+        steps=[ln["step"] for ln in rs],
+        terms_bitwise=all(r[k] == u[k] for r, u in zip(rs, us)
+                          for k in keys),
+        params_bitwise=params_rel(ckpt_params("m_resumed", MESH_STEPS),
+                                  ckpt_params("m_rays", MESH_STEPS)) == 0.0)
+    check(part["lines"][-1]["stopped"] and len(rs) == len(us)
+          == MESH_STEPS - MESH_RESUME_STOP and res["resume"]["terms_bitwise"]
+          and res["resume"]["params_bitwise"],
+          f"mesh resume vs uninterrupted: {res['resume']}")
+
+    # 6. --eval on 2 ranks against one device, view by view
+    views = [frames_agree(g, w) for g, w in zip(evm["frames"], one_frames)]
+    [v1] = [ln for ln in e1_lines if "val_step" in ln]
+    [v2] = [ln for ln in evm["lines"] if "val_step" in ln]
+    n_val = len(one_frames)
+    res["eval"] = dict(
+        views=n_val, per_view=views, bitwise=all(v["bitwise"] for v in views),
+        ms_per_view=v2["ms_per_view"], single_ms_per_view=v1["ms_per_view"],
+        k1_launches_per_rank=evm["k1_launches"])
+    check(len(evm["frames"]) == n_val and all(v["within_tol"] for v in views)
+          and evm["k1_launches"] == [n_val * half] * 2,
+          f"sharded --eval vs one device: {res['eval']}")
+
+    # 7. serve's batch mode and render_path on 2 ranks; HTTP
+    batch = []
+    for o in outs:
+        with np.load(o) as f:
+            batch.append([f[k] for k in FRAME_KEYS])
+    vs_phase = []
+    for i, b in enumerate(batch):       # phase serving's default kernels
+        with np.load(OUT_DIR / f"frame_{i:03d}.npz") as f:
+            vs_phase.append(frame_diff(b, [f[k] for k in FRAME_KEYS]))
+    [summ] = [ln for ln in served["lines"] if "frames" in ln]
+    per_frame = [frames_agree(b, s) for b, s in zip(batch, single)]
+    http = mesh_http(poses)
+    http_vs = [frame_diff(h, b) for h, b in zip(http.pop("frames"), batch)]
+    with np.load(OUT_DIR / "m_render_path.npz") as f:
+        rp_ok = (f["rgb"].shape == (MESH_FRAMES, H, W, 3)
+                 and np.isfinite(f["rgb"]).all()
+                 and np.isfinite(f["depth"]).all())
+    res["serve"] = dict(
+        frames=served["result"], per_frame=per_frame,
+        ms_per_frame=summ["ms_per_frame"],
+        single_ms_per_frame=sv["serve_ms_per_frame"],
+        vs_phase_serving=vs_phase, k1_launches_per_rank=served["k1_launches"],
+        http=dict(http, vs_batch=http_vs),
+        render_path=dict(frames=rp["result"]["frames"], ok=bool(rp_ok),
+                         steady_ms_per_frame=rp["result"][
+                             "steady_ms_per_frame"],
+                         k1_launches_per_rank=rp["k1_launches"]))
+    res["k1_launches"] = sum(evm["k1_launches"] + served["k1_launches"]
+                             + rp["k1_launches"])
+    res["note"] = ("ranks share one card: times are not a scaling "
+                   "measurement")
+    check(served["result"] == 2 and all(v["within_tol"] for v in per_frame)
+          and served["k1_launches"] == [3 * half] * 2,   # + warm-up frame
+          f"mesh serve batch: {res['serve']}")
+    check(http["health"][0] == 200 and http["health"][1]["world_size"] == 2
+          and http["health_after"] == 200 and http["bad_status"] == 400
+          and http["after_bad_status"] == 200 and http["rc"] == 0
+          and http["clean_shutdown"] and not http["processes_left"]
+          and all(d[k] <= HTTP_TOL for d in http_vs for k in (
+              "rgb_mean_abs", "depth_mean_abs", "confidence_mean_abs")),
+          f"mesh HTTP: {res['serve']['http']}")
+    check(rp_ok and rp["result"]["frames"] == MESH_FRAMES
+          and rp["k1_launches"] == [MESH_FRAMES * half] * 2,
+          f"mesh render_path: {res['serve']['render_path']}")
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     try:
@@ -1938,9 +2690,10 @@ def main():
         shutil.rmtree(PRE_DIR, ignore_errors=True)
         for name in ("s_train", "s_eval", "p_eval"):
             shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
+    mh = timed("mesh", phase_mesh, dev, sv, smi)
     record = {"k1": k1, "serving": sv, "http": hp, "render_path": rp,
               "train": tr, "options": op, "scared": sd, "preprocess": pp,
-              "nvidia_smi": smi,
+              "mesh": mh, "nvidia_smi": smi,
               "seconds": time.perf_counter() - t_start,
               "phase_seconds": seconds}
     (OUT_DIR / "result.json").write_text(json.dumps(record, indent=1))
@@ -1952,7 +2705,8 @@ def main():
         "replaces": "ucnerf_tpu/pallas/mlp_kernel.py:115",
         "launches": (sv["launches"] + hp["launches"] + rp["launches"]
                      + tr["k1_launches"] + op["k1_launches"]
-                     + sd["k1_launches"] + pp["k1_launches"]),
+                     + sd["k1_launches"] + pp["k1_launches"]
+                     + mh["k1_launches"]),
         "max_abs_err": k1["serving"]["bf16_vs_plain_bf16_max_abs_err"],
         "ms": k1["bf16_ms"], "plain_ms": k1["plain_bf16_ms"],
         "bound_ms": k1["bound_bf16_ms"], "bound_by": k1["bound_by_bf16"],

@@ -41,7 +41,8 @@ def test_serve_imports_with_jax_blocked():
     datasets, COLMAP I/O, poses, the JPEG decoder's binding and the resize
     twins), and ``ucnerf_torch.preprocess`` and
     ``ucnerf_torch.convert_weights`` with theirs (DPT, COLMAP's wrapper and
-    dense I/O), and the ops tail (geometry, the grid samplers), import when
+    dense I/O), the ops tail (geometry, the grid samplers) and the
+    multi-rank modules (``ucnerf_torch.parallel.*``), import when
     importing jax, the image libraries and transformers fails."""
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'optax', 'ucnerf_tpu', 'cv2', 'PIL',"
@@ -65,6 +66,10 @@ def test_serve_imports_with_jax_blocked():
             "import ucnerf_torch.models.dpt, ucnerf_torch.data.colmap_dense\n"
             "import ucnerf_torch.data.colmap_wrapper\n"
             "import ucnerf_torch.ops.geometry, ucnerf_torch.ops.grid_sample\n"
+            "import ucnerf_torch.parallel.mesh, ucnerf_torch.parallel.launch\n"
+            "import ucnerf_torch.parallel.collectives\n"
+            "import ucnerf_torch.parallel.mvs_views\n"
+            "import ucnerf_torch.parallel.sharding\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -173,7 +173,7 @@ def test_bf16_and_mvs_only_losses_match_jax(case):
     for name, rtol in (("bf16", 2e-2), ("mvs_only", 6e-3)):
         flags, seed, _ = SCENE_REFS[name]
         cfg = case["cfg"].replace(**flags)
-        _, terms_j = jax_scene_refs()[name]
+        _, terms_j = jax_scene_refs(("bf16", "mvs_only"))[name]
         nerf, mvs = _port(cfg, case["params"])
         with torch.no_grad():
             _, terms = t_loop.scene_loss(cfg, nerf, mvs, batch,

@@ -76,11 +76,13 @@ def case():
 
 
 @functools.lru_cache(maxsize=None)
-def jax_scene_refs() -> dict:
+def jax_scene_refs(names) -> dict:
     """The JAX package's ``scene_loss`` on the case's sample and weights
-    for each of SCENE_REFS: {name: ((loss, terms), gradient tree)} with
-    gradients, else (loss, terms).  Compiling dominates, so each is
-    compiled on a thread of its own while the next one is traced."""
+    for each of ``names`` of SCENE_REFS: {name: ((loss, terms), gradient
+    tree)} with gradients, else (loss, terms).  Compiling dominates, so
+    each is compiled on a thread of its own while the next one is traced,
+    and each test file asks only for the ones it reads (the suite's
+    workers run files apart, and would compile them all twice)."""
     c = _case()
     batch = j_loop.to_device_batch(c["sample"])
     p = jax.tree.map(jnp.asarray, c["jparams"])
@@ -94,10 +96,10 @@ def jax_scene_refs() -> dict:
                                      jax.random.PRNGKey(seed))
         return jax.value_and_grad(loss, has_aux=True) if grad else loss
 
-    with ThreadPoolExecutor(len(SCENE_REFS)) as pool:
-        compiled = {name: pool.submit(jax.jit(ref(*spec)).lower(p).compile,
-                                      JIT_QUICK)
-                    for name, spec in SCENE_REFS.items()}
+    with ThreadPoolExecutor(len(names)) as pool:
+        compiled = {name: pool.submit(jax.jit(ref(
+            *SCENE_REFS[name])).lower(p).compile, JIT_QUICK)
+            for name in names}
         return {name: jax.tree.map(np.asarray, f.result()(p))
                 for name, f in compiled.items()}
 
@@ -210,10 +212,10 @@ def _rel_envelope(got: dict, want: dict):
 
 def _check_scene_loss_and_gradients(case, name: str):
     """The port's ``scene_loss`` and gradients at SCENE_REFS[name] against
-    ``jax_scene_refs()[name]``, with JAX's draws."""
+    ``jax_scene_refs(("fast", "literal"))[name]``, with JAX's draws."""
     flags, seed, _ = SCENE_REFS[name]
     cfg = case["cfg"].replace(**flags)
-    (_, terms_j), grads_j = jax_scene_refs()[name]
+    (_, terms_j), grads_j = jax_scene_refs(("fast", "literal"))[name]
     nerf, mvs = _port(cfg, case["params"])
     loss, terms = t_loop.scene_loss(cfg, nerf, mvs,
                                     to_device_batch(case["sample"], "cpu"),

@@ -235,9 +235,13 @@ def _entry_point(entry, tmp_path):
 @pytest.mark.parametrize("entry", ["train", "serve", "render_path"])
 @pytest.mark.parametrize("option", ["mesh_shape"])
 def test_unported_options_raise(entry, option, tmp_path):
-    """--mesh_shape > 1 is refused by every entry point, not ignored."""
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        _entry_point(entry, tmp_path)(["--mesh_shape", "2"])
+    """--mesh_shape > 1 is no longer refused: every entry point runs on a
+    mesh (``tests/test_torch_parallel*.py``).  What the JAX package
+    refuses still raises in each, before any rank starts: a mesh whose
+    --mesh_axes do not name each of its axes (``jax.sharding.Mesh``
+    refuses it)."""
+    with pytest.raises(ValueError, match="mesh_axes"):
+        _entry_point(entry, tmp_path)(["--mesh_shape", "2", "2"])
 
 
 @pytest.mark.parametrize("entry,option", [

@@ -98,21 +98,32 @@ class CostRegNet(nn.Module):
         return cost, self.prob(cost)
 
 
-def _variance_cost_volume(src_feats, projs, depth_values, pad: int):
+def _variance_cost_volume(src_feats, projs, depth_values, pad: int,
+                          views=None):
     """Masked variance volume over source views.
 
     src_feats [V, H, W, C]; projs [V, 3, 4]; depth_values [D, H_pad, W_pad].
-    Returns variance [D, H_pad, W_pad, C].
+    Returns variance [D, H_pad, W_pad, C].  ``views`` (a
+    ``parallel/mvs_views.py::ViewShard``) weights each view by its
+    ``valid`` and sums the three partial sums over the view group with
+    its ``reduce``.
     """
     vol_sum = 0.0
     vol_sq_sum = 0.0
-    mask_sum = torch.ones_like(depth_values)  # the reference's extra +1
+    mask_sum = 0.0
     for i in range(src_feats.shape[0]):
         warped, mask = homo_warp(src_feats[i], projs[i], depth_values, pad)
+        if views is not None:
+            warped, mask = warped * views.valid[i], mask * views.valid[i]
         vol_sum = vol_sum + warped
         vol_sq_sum = vol_sq_sum + warped * warped
         mask_sum = mask_sum + mask
-    count = (1.0 / mask_sum)[..., None]
+    if views is not None:
+        vol_sum, vol_sq_sum, mask_sum = map(views.reduce,
+                                            (vol_sum, vol_sq_sum, mask_sum))
+    # the reference's extra +1 in the in-bounds count; the masks are 0 or
+    # 1, so the count is exact in any order of the sums
+    count = (1.0 / (1.0 + mask_sum))[..., None]
     return vol_sq_sum * count - (vol_sum * count) ** 2
 
 
@@ -203,9 +214,12 @@ class CascadeMVSNet(nn.Module):
         return {k: v.permute(0, 2, 3, 1) for k, v in out.items()}
 
     def from_features(self, feats, affine_mats, affine_mats_inv, near, far,
-                      pad: int = 0):
+                      pad: int = 0, views=None):
         """The target-dependent remainder of the cascade given
-        ``features``' output."""
+        ``features``' output.  With ``views`` (``--shard_mvs_views``,
+        ``parallel/mvs_views.py``) ``feats`` holds this rank's share of
+        the source views: their projections, the variance sums and
+        ``img_feats`` go through it."""
         H, W = feats["stage3"].shape[1:3]
         n_stages = len(self.ndepths)
         D0 = self.ndepths[0]
@@ -229,8 +243,10 @@ class CascadeMVSNet(nn.Module):
 
             aff = affine_mats[:, si]
             projs = (aff[1:] @ affine_mats_inv[0, si])[:, :3]
+            if views is not None:
+                projs = views.projs(projs)
             variance = _variance_cost_volume(feats[f"stage{stage}"], projs,
-                                             depth_vals, stage_pad)
+                                             depth_vals, stage_pad, views)
             cost, prob_logits = self.cost_regularization[si](
                 variance.permute(3, 0, 1, 2)[None])
             prob, depth_out, confidence = stage_head(
@@ -243,7 +259,8 @@ class CascadeMVSNet(nn.Module):
                 "prob_volume": prob.detach(),
             }
             depth_prev = depth_out
-        outputs["img_feats"] = feats["stage3"]
+        outputs["img_feats"] = (feats["stage3"] if views is None
+                                else views.gather(feats["stage3"]))
         return outputs
 
     def forward(self, imgs_src, affine_mats, affine_mats_inv, near, far,

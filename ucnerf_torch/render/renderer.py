@@ -127,20 +127,27 @@ def render_rays(nerf_apply, rays, feat_ctx, w2c_ref,
 
 
 def render_image_chunked(build_chunk_rays, render_chunk, H: int, W: int,
-                         chunk: int, device):
+                         chunk: int, device, rank: int = 0, n_ranks: int = 1,
+                         gather=None):
     """Full-image render as a loop over ``chunk``-ray pixel tiles.
 
     ``build_chunk_rays(pixel_idx)`` -> rays; ``render_chunk(rays)`` ->
-    (rgb, depth).  The pixel count is padded up to a tile multiple by
-    wrapping (``% n``) and cropped after."""
+    (rgb, depth).  The pixel count is padded up to a multiple of
+    ``n_ranks`` tiles by wrapping (``% n``) and cropped after.  With
+    ``n_ranks`` > 1 the tiles split into contiguous blocks, this call
+    renders block ``rank``, and ``gather(rows)`` (an all-gather in rank
+    order) puts the frame together."""
     n = H * W
-    n_tiles = (n + chunk - 1) // chunk
-    idx = torch.arange(n_tiles * chunk, device=device) % n
+    per_round = chunk * n_ranks
+    n_pad = -(-n // per_round) * per_round
+    idx = (torch.arange(n_pad, device=device) % n).reshape(n_ranks, -1,
+                                                           chunk)[rank]
     rgbs, depths = [], []
-    for pix in idx.reshape(-1, chunk):
+    for pix in idx:
         rgb, depth = render_chunk(build_chunk_rays(pix))
         rgbs.append(rgb)
         depths.append(depth)
-    rgb = torch.cat(rgbs)[:n].reshape(H, W, 3)
-    depth = torch.cat(depths)[:n].reshape(H, W)
-    return rgb, depth
+    rgb, depth = torch.cat(rgbs), torch.cat(depths)
+    if gather is not None:
+        rgb, depth = gather(rgb), gather(depth)
+    return rgb[:n].reshape(H, W, 3), depth[:n].reshape(H, W)

@@ -33,10 +33,15 @@ class ServingRenderer:
 
     ``nerf`` is the MLP callable (the kernel wrapper on the card), ``mvs``
     the cascade; ``sample`` one dataset sample, whose view-0 pose is
-    replaced per request; ``intrinsic`` the target camera."""
+    replaced per request; ``intrinsic`` the target camera.  With a
+    ``mesh`` each frame's pixel tiles split over all its ranks
+    (``train/loop.py::make_eval_render`` on the mesh, the cached
+    features in place of the cascade's FeatureNet), and every rank gets
+    the whole frame; each rank must render the same poses in the same
+    order."""
 
     def __init__(self, cfg: Config, nerf, mvs, sample,
-                 img_hw: Tuple[int, int], intrinsic, device):
+                 img_hw: Tuple[int, int], intrinsic, device, mesh=None):
         self.cfg = cfg
         self.sample = sample
         self.intrinsic = np.asarray(intrinsic, np.float32)
@@ -51,8 +56,9 @@ class ServingRenderer:
             return mvs.from_features(self.src_feats, aff, aff_inv, near, far,
                                      pad)
 
+        self.mesh = mesh
         self._render_view = make_eval_render(cfg, nerf, mvs, self.img_hw,
-                                             mvs_apply=mvs_cached)
+                                             mvs_apply=mvs_cached, mesh=mesh)
 
     def frame_batch(self, c2w):
         """Device batch for a target pose: only the view-0 pose rows and the

@@ -12,19 +12,24 @@ card.  Frame i+1 is enqueued on the device before frame i is fetched; the
 script prints the steady ms per frame.  ``--out x.npz`` writes ``rgb``
 [N, H, W, 3] and ``depth`` [N, H, W].  The port has no video encoder, so
 any other extension saves ``<out>.npz`` instead and says so, as the JAX
-package's script does on a machine without one.  ``--ckpt``, ``--seed``
-and ``--device`` act as they do for ``python -m ucnerf_torch.serve``.
+package's script does on a machine without one.  ``--ckpt``, ``--seed``,
+``--device`` and ``--mesh_shape`` act as they do for ``python -m
+ucnerf_torch.serve``: on a mesh every rank renders its tiles of each
+frame and rank 0 writes the npz and prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
 
 from ucnerf_torch.config import parse_config
 from ucnerf_torch.data import build_dataset
+from ucnerf_torch.parallel import launch
+from ucnerf_torch.parallel.mesh import check_mesh, current_mesh, mesh_size
 from ucnerf_torch.serve import renderer_for
 from ucnerf_torch.utils import pose_traj
 from ucnerf_torch.utils.platform import resolve_device
@@ -46,7 +51,11 @@ def make_trajectory(name, c2ws, bounds, n_frames):
     raise ValueError(name)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, timeout=None) -> dict:
+    """Render the trajectory.  With more than one rank in
+    ``--mesh_shape`` this spawns the ranks and returns rank 0's result;
+    ``timeout`` (s) bounds the spawned run."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--traj", default="interp",
                         choices=["spiral", "euler", "interp", "spheric"])
@@ -59,14 +68,23 @@ def main(argv=None) -> dict:
                         help="torch device (default: the card)")
     ns, rest = parser.parse_known_args(argv)
     cfg = parse_config(rest)
-    dev = resolve_device(ns.device)
+    mesh = current_mesh()
+    if mesh_size(cfg.mesh_shape) > 1:
+        check_mesh(cfg.mesh_shape, cfg.mesh_axes)
+        if mesh is None:
+            return launch.run_ranks(
+                "ucnerf_torch.render_path:_rank_main", (argv,),
+                cfg.mesh_shape, cfg.mesh_axes,
+                resolve_device(ns.device).type, timeout=timeout)[0]
+    dev = resolve_device(ns.device) if mesh is None else mesh.device
+    say = print if mesh is None or mesh.is_main else (lambda *a: None)
 
     ds = build_dataset(cfg, "val")
     W, H = ds.img_wh
     sc = ds.scene[ds.metas[0][0]]
     traj = make_trajectory(ns.traj, sc["c2ws"][sc["train_index"]],
                            sc.get("bounds"), ns.n_frames)
-    renderer, _ = renderer_for(cfg, ds, 0, dev)
+    renderer, _ = renderer_for(cfg, ds, 0, dev, mesh)
 
     frames, depths, marks = [], [], []
     pending = None
@@ -78,7 +96,7 @@ def main(argv=None) -> dict:
             depths.append(pending[1].cpu().numpy())
             marks.append(time.perf_counter())
         pending = (rgb, depth)
-        print(f"frame {i + 1}/{len(traj)} dispatched")
+        say(f"frame {i + 1}/{len(traj)} dispatched")
     frames.append(pending[0].cpu().numpy())
     depths.append(pending[1].cpu().numpy())
     marks.append(time.perf_counter())
@@ -87,21 +105,29 @@ def main(argv=None) -> dict:
     # frame time is what serving sees
     steady = float(np.median(np.diff(marks[1:]))) if len(marks) > 2 else None
     if steady:
-        print(f"rendered {len(frames)} frames in {total:.2f}s (first "
+        say(f"rendered {len(frames)} frames in {total:.2f}s (first "
               f"{marks[0] - t0:.2f}s; steady {steady * 1e3:.1f} ms/frame = "
               f"{1.0 / steady:.2f} fps)")
     else:
-        print(f"rendered {len(frames)} frames in {total:.2f}s")
+        say(f"rendered {len(frames)} frames in {total:.2f}s")
 
     out = ns.out
     if not out.endswith(".npz"):
         out = ns.out + ".npz"
-        print(f"ucnerf_torch.render_path: no video writer for {ns.out!r}; "
-              f"saved frames to {out} instead")
-    np.savez(out, rgb=np.stack(frames), depth=np.stack(depths))
-    print(f"wrote {out} ({len(frames)} frames, {W}x{H})")
+        say(f"ucnerf_torch.render_path: no video writer for {ns.out!r}; "
+            f"saved frames to {out} instead")
+    if mesh is None or mesh.is_main:
+        np.savez(out, rgb=np.stack(frames), depth=np.stack(depths))
+    say(f"wrote {out} ({len(frames)} frames, {W}x{H})"
+        + ("" if mesh is None else f" on {mesh.size} ranks ({mesh.backend})"))
     return {"out": out, "frames": len(frames), "wall_s": total,
-            "steady_ms_per_frame": None if steady is None else steady * 1e3}
+            "steady_ms_per_frame": None if steady is None else steady * 1e3,
+            **({} if mesh is None else dict(world_size=mesh.size,
+                                            backend=mesh.backend))}
+
+
+def _rank_main(mesh, argv) -> dict:
+    return main(argv)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,8 @@ import torch
 from ucnerf_torch.config import Config
 from ucnerf_torch.data.base import IMAGENET_MEAN, IMAGENET_STD
 from ucnerf_torch.ops.rays import TrainDraws, build_test_rays, build_train_rays
+from ucnerf_torch.parallel.collectives import gather_rows
+from ucnerf_torch.parallel.mvs_views import make_view_sharded_cascade
 from ucnerf_torch.render.renderer import (make_feat_ctx, render_image_chunked,
                                           render_rays)
 from ucnerf_torch.train.losses import cas_mvsnet_loss, total_loss
@@ -127,18 +129,26 @@ def run_mvs(cfg: Config, mvs, batch):
 
 
 def scene_inputs(cfg: Config, mvs, batch, draws: TrainDraws,
-                 train: bool = True):
+                 train: bool = True, mvs_apply=None, agree=None):
     """Cascade forward + train-ray build for one scene sample.  Under
-    ``--finetune`` the cascade runs without autograd."""
+    ``--finetune`` the cascade runs without autograd.  ``mvs_apply``
+    overrides the cascade forward (the view-sharded one); ``agree(conf)``,
+    when given, returns the detached confidence the rays are drawn from
+    (the multi-rank losses take rank 0's, so that every rank draws the
+    same rays)."""
     imgs = unnormalize(batch["images"])
     near, far = batch["near_fars"][0, 0], batch["near_fars"][0, 1]
     frozen = torch.no_grad() if cfg.finetune is not None \
         else contextlib.nullcontext()
     with frozen:
-        mvs_out = run_mvs(cfg, mvs, batch)
+        mvs_out = run_mvs(cfg, mvs if mvs_apply is None else mvs_apply,
+                          batch)
     confidence = mvs_out["stage3"]["photometric_confidence"]
+    ray_conf = confidence.detach()
+    if agree is not None:
+        ray_conf = agree(ray_conf)
     rays = build_train_rays(
-        draws, image_tgt=imgs[0], confidence=confidence.detach(),
+        draws, image_tgt=imgs[0], confidence=ray_conf,
         sparse_coords=batch["sparse_coords"],
         sparse_mask=batch["sparse_mask"],
         intrinsic=batch["intrinsics"][0], c2w=batch["c2ws"][0],
@@ -207,23 +217,30 @@ def scene_loss(cfg: Config, nerf, mvs, batch, draws: TrainDraws):
     return scene_loss_terms(cfg, batch, rgb, depth, rays, mvs_out)
 
 
-def make_train_step(cfg: Config, schedule: Callable):
+def make_train_step(cfg: Config, schedule: Callable, loss_fn=None,
+                    reduce_grads=None):
     """``train_step(state, batch, draws)`` -> metrics (detached tensors):
     forward, backward, LR = ``schedule(state.step)`` (the count of updates
     already made), one Adam update.  A trained parameter that got no
     gradient gets a zero one, so its moments decay as in an update of the
     whole tree.  ``--debug_nans`` runs forward and backward in autograd's
     anomaly mode and raises FloatingPointError, before the update, when
-    the loss or a gradient is not finite."""
+    the loss or a gradient is not finite.  The multi-rank steps
+    (``parallel/sharding.py``) pass ``loss_fn(nerf, mvs, batch, draws)``
+    -> (loss, metrics) in place of ``scene_loss`` and
+    ``reduce_grads(params)``, run on the trained parameters before the
+    update."""
     anomaly = (torch.autograd.detect_anomaly if cfg.debug_nans
                else contextlib.nullcontext)
+    if loss_fn is None:
+        def loss_fn(nerf, mvs, batch, draws):
+            return scene_loss(cfg, nerf, mvs, batch, draws)
 
     def train_step(state: TrainState, batch, draws: TrainDraws) -> Dict:
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         with anomaly():
-            loss, metrics = scene_loss(cfg, state.nerf, state.mvs, batch,
-                                       draws)
+            loss, metrics = loss_fn(state.nerf, state.mvs, batch, draws)
             if cfg.debug_nans and not torch.isfinite(loss):
                 raise FloatingPointError(
                     f"--debug_nans: step {state.step} loss is "
@@ -237,12 +254,15 @@ def make_train_step(cfg: Config, schedule: Callable):
                 raise FloatingPointError(
                     f"--debug_nans: step {state.step} gradients not finite "
                     f"in {len(bad)} tensors: {', '.join(bad[:5])}")
+        trained = [p for group in opt.param_groups for p in group["params"]]
+        for p in trained:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if reduce_grads is not None:
+            reduce_grads(trained)
         lr = schedule(state.step)
         for group in opt.param_groups:
             group["lr"] = lr
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
         opt.step()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
@@ -294,23 +314,51 @@ def view_chunk_fns(cfg: Config, nerf, H: int, W: int, ctx: Dict):
     return build_chunk, render_chunk
 
 
+def eval_jitter_draws(device, skip: int = 0, shape=(0, 0)) -> Callable:
+    """``--eval_jitter``'s draws of a view: ``draws(pix, n)`` gives the
+    next tile's [N, n] uniforms from one generator seeded 0, tile after
+    tile in raster order, past ``skip`` tiles of ``shape``'s draws."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    for _ in range(skip):
+        torch.rand(shape, generator=gen, device=device)
+    return lambda pix, n: torch.rand((pix.shape[0], n), generator=gen,
+                                     device=pix.device)
+
+
 def make_eval_render(cfg: Config, nerf, mvs, img_hw: Tuple[int, int],
-                     mvs_apply=None):
+                     mvs_apply=None, mesh=None):
     """Full-image eval render: ``render_view(batch)`` -> (rgb [H,W,3]
-    clipped to [0,1], depth [H,W], confidence [H,W])."""
+    clipped to [0,1], depth [H,W], confidence [H,W]).  On a ``mesh``
+    (``parallel/mesh.py``) every rank computes the view's context, the
+    pixel tiles split into contiguous blocks over all its ranks, and the
+    frame is gathered on every rank (the JAX package's
+    ``make_parallel_eval_render``); ``--shard_mvs_views`` on a one-axis
+    mesh also splits the cascade's views, unless ``mvs_apply`` overrides
+    the cascade."""
     H, W = img_hw
+    n_ranks, rank, gather = 1, 0, None
+    if mesh is not None:
+        world = mesh.group()
+        n_ranks, rank = mesh.size, mesh.rank
+
+        def gather(rows):
+            return gather_rows(rows, world, "frame")
+        if mvs_apply is None and cfg.shard_mvs_views and len(mesh.shape) == 1:
+            mvs_apply = make_view_sharded_cascade(mvs, world)
 
     @torch.no_grad()
     def render_view(batch):
+        dev = batch["images"].device
         ctx = prepare_view_ctx(cfg, mvs, batch, mvs_apply=mvs_apply)
-        if cfg.eval_jitter:
-            gen = torch.Generator(device=batch["images"].device)
-            gen.manual_seed(0)
-            ctx["jitter_draws"] = lambda pix, n: torch.rand(
-                (pix.shape[0], n), generator=gen, device=pix.device)
+        if cfg.eval_jitter:     # past the draws of the earlier ranks' tiles
+            per_rank = -(-H * W // (cfg.chunk * n_ranks))
+            ctx["jitter_draws"] = eval_jitter_draws(
+                dev, rank * per_rank, (cfg.chunk, 3 * (cfg.N_samples // 3)))
         build_chunk, render_chunk = view_chunk_fns(cfg, nerf, H, W, ctx)
         rgb, depth = render_image_chunked(build_chunk, render_chunk, H, W,
-                                          cfg.chunk, batch["images"].device)
+                                          cfg.chunk, dev, rank, n_ranks,
+                                          gather)
         return torch.clamp(rgb, 0.0, 1.0), depth, ctx["confidence"]
 
     return render_view

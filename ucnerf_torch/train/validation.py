@@ -56,10 +56,15 @@ LPIPS_WARNING = (
 
 class Validator:
     """The val split, its device store and the lazily loaded LPIPS, built
-    once per run; ``validator(nerf, mvs)`` -> metrics dict."""
+    once per run; ``validator(nerf, mvs)`` -> metrics dict.  With a
+    ``mesh`` of more than one rank every rank renders its share of each
+    view's tiles (``train/loop.py::make_eval_render`` on the mesh) and
+    rank 0 alone computes the metrics and writes the files; the others
+    return ``{}``."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device(device)
         self.val_ds = build_dataset(cfg, "val")
         self.store = (build_store(self.val_ds, self.device)
@@ -162,6 +167,8 @@ def run_mvs_validation(validator: Validator, mvs) -> Dict:
     validation_step, ``train.py:238-243`` + ``utils/evaluation.py:29-74``);
     ``{}`` when the split has no GT depth."""
     cfg = validator.cfg
+    if validator.mesh is not None and not validator.mesh.is_main:
+        return {}
     gts, preds = [], []
     with torch.no_grad():
         for i in range(len(validator.val_ds)):
@@ -186,9 +193,10 @@ def run_validation(validator: Validator, nerf, mvs, panel_step=None
     val views per scan, ``train.py:342-379``).  With ``panel_step`` each
     view's GT/rendered panel goes to
     ``test_results/{panel_step:08d}_{i:02d}.png``."""
-    cfg, ds = validator.cfg, validator.val_ds
+    cfg, ds, mesh = validator.cfg, validator.val_ds, validator.mesh
     W, H = ds.img_wh
-    render_view = make_eval_render(cfg, render_mlp(nerf), mvs, (H, W))
+    render_view = make_eval_render(cfg, render_mlp(nerf), mvs, (H, W),
+                                   mesh=mesh)
     gts, rgbs, depths = [], [], []
     for i in range(len(ds)):
         batch, gt = validator.val_batch(i)
@@ -197,6 +205,8 @@ def run_validation(validator: Validator, nerf, mvs, panel_step=None
         rgbs.append(rgb)
         depths.append(depth)
     validator.panels = None
+    if mesh is not None and not mesh.is_main:
+        return {}
     if panel_step is None:
         return rgb_metrics(validator, gts, rgbs, depths)
     with PanelWriter() as panels:

@@ -27,8 +27,10 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ucnerf_torch.models.factory import init_params
+from ucnerf_torch.parallel.mesh import current_mesh, is_main_rank
 
 _FPN_BLOCKS = ["conv0.0", "conv0.1", "conv1.0", "conv1.1", "conv1.2",
                "conv2.0", "conv2.1", "conv2.2"]
@@ -239,9 +241,23 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 0) -> str:
     place, so a save killed midway leaves no half checkpoint for a resume
     to find; re-saving a step replaces it.  ``keep > 0`` then prunes the
     oldest ``step_*`` directories so that at most ``keep`` remain (0 keeps
-    all, as the reference does with its 5000-step dumps)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    all, as the reference does with its 5000-step dumps).
+
+    In a multi-rank run rank 0 writes it and every rank waits for it; the
+    path comes back on every rank (``load_checkpoint`` then reads it on
+    every rank)."""
     name = f"step_{step:08d}"
+    path = os.path.join(ckpt_dir, name)
+    if is_main_rank():
+        _write_checkpoint(ckpt_dir, name, state, step, keep)
+    if current_mesh() is not None:
+        dist.barrier()
+    return path
+
+
+def _write_checkpoint(ckpt_dir: str, name: str, state, step: int,
+                      keep: int):
+    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, name)
     tmp = tempfile.mkdtemp(prefix=f".{name}.", dir=ckpt_dir)
     try:
@@ -265,7 +281,6 @@ def save_checkpoint(ckpt_dir: str, state, step: int, keep: int = 0) -> str:
         old = [d for d in _step_dirs(ckpt_dir) if d != name]
         for d in old[:max(0, len(old) - (keep - 1))]:
             shutil.rmtree(os.path.join(ckpt_dir, d))
-    return path
 
 
 def load_checkpoint(path: str, state):
