@@ -311,16 +311,17 @@ def ptxas_by_kernel(text: str) -> dict:
 
 def phase_build():
     """Every native source of the path at once: K1 with nvcc, the JPEG
-    decoder with the host compiler."""
+    decoder and the COLMAP loader with the host compiler."""
     from concurrent.futures import ThreadPoolExecutor
     from ucnerf_torch.kernels import build
     t0 = time.perf_counter()
-    names = ("fused_mlp", "jpeg_decode")
+    names = ("fused_mlp", "jpeg_decode", "colmap_fast")
     with ThreadPoolExecutor(len(names)) as pool:
         res = dict(zip(names, pool.map(build.build, names)))
     log("build", kernel="fused_mlp", seconds=time.perf_counter() - t0,
         nvcc_seconds=res["fused_mlp"]["seconds"],
         cxx_seconds=res["jpeg_decode"]["seconds"],
+        colmap_cxx_seconds=res["colmap_fast"]["seconds"],
         ptxas=ptxas_by_kernel(res["fused_mlp"]["ptxas"]))
 
 
@@ -1501,6 +1502,132 @@ def load_breakdown(ds, scene: Path) -> dict:
     return out
 
 
+SPARSE_KEYS = ("depth_img", "weight_img", "coords", "depths", "weights")
+
+
+def fabricate_colmap_model(scene: Path, n_images: int = 300,
+                           n_points: int = 100_000,
+                           obs_per_image: int = 4000, seed: int = 7) -> dict:
+    """A COLMAP model of a long endoscopic sequence's scale at SCARED's
+    1280x1024, as the JAX package's ``scripts/bench_native_colmap.py``
+    fabricates one: ``n_points`` points in a box 2-5 units in front of
+    ``n_images`` cameras that pan along x, ``obs_per_image`` of the points
+    in view observed by each image, 30% of them unmatched (id -1); written
+    to ``scene/sparse/0`` with the port's writers."""
+    from ucnerf_torch.data import colmap
+    rng = np.random.default_rng(seed)
+    W, H = SCAN_WH
+    xyz = rng.uniform([-1, -1, 2.0], [1, 1, 5.0], size=(n_points, 3))
+    errs = rng.uniform(0.2, 2.0, size=n_points)
+    empty = np.array([], np.int32)
+    points = {i + 1: colmap.Point3D(i + 1, xyz[i], np.array([128] * 3),
+                                    float(errs[i]), empty, empty)
+              for i in range(n_points)}
+    images = {}
+    for i in range(1, n_images + 1):
+        a = 0.002 * i
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        t = np.array([0.02 * i, 0.0, 0.0])
+        pc = xyz @ R.T + t
+        uv = pc[:, :2] / pc[:, 2:3] * 1000.0 + [W / 2, H / 2]
+        seen = np.flatnonzero((pc[:, 2] > 0.1) & (uv[:, 0] >= 0)
+                              & (uv[:, 0] < W) & (uv[:, 1] >= 0)
+                              & (uv[:, 1] < H))
+        sel = np.sort(rng.choice(seen, size=min(obs_per_image, len(seen)),
+                                 replace=False))
+        ids = (sel + 1).astype(np.int64)
+        ids[rng.uniform(size=len(ids)) < 0.3] = -1
+        images[i] = colmap.Image(i, colmap.rotmat2qvec(R), t, 1,
+                                 f"img_{i:04d}.png", uv[sel], ids)
+    sparse = scene / "sparse" / "0"
+    sparse.mkdir(parents=True, exist_ok=True)
+    colmap.write_cameras_binary({1: colmap.Camera(
+        1, "PINHOLE", W, H, np.array([1000.0, 1000.0, W / 2, H / 2]))},
+        sparse / "cameras.bin")
+    colmap.write_images_binary(images, sparse / "images.bin")
+    colmap.write_points3d_binary(points, sparse / "points3D.bin")
+    return dict(images=n_images, points=n_points,
+                observations=int(sum(len(im.point3D_ids)
+                                     for im in images.values())),
+                mb=sum(f.stat().st_size for f in sparse.iterdir()) / 1e6)
+
+
+def sparse_differences(got: list, want: list) -> dict:
+    """Per-entry comparison of two sparse-depth loads: names, the values
+    of each array that differ, and the largest difference in float32
+    units in the last place."""
+    names = [e["name"] for e in got] == [e["name"] for e in want]
+    n_diff, max_ulp = 0, 0
+    for a, b in zip(got, want):
+        for k in SPARSE_KEYS:
+            if a[k].shape != b[k].shape or a[k].dtype != b[k].dtype:
+                return dict(names=names, shapes_equal=False)
+            n_diff += int((a[k] != b[k]).sum())
+            if a[k].dtype == np.float32 and a[k].size:
+                ulp = np.abs(a[k].view(np.int32).astype(np.int64)
+                             - b[k].view(np.int32).astype(np.int64))
+                max_ulp = max(max_ulp, int(ulp.max()))
+    return dict(names=names, shapes_equal=len(got) == len(want),
+                values_differing=n_diff, max_ulp=max_ulp)
+
+
+def native_colmap(scene: Path, ds) -> dict:
+    """The native COLMAP loader (``data/native.py``) against the Python
+    one (host clock, median of 3): the scan's model, bit for bit, at the
+    dataset's splat size; then a large fabricated model
+    (``fabricate_colmap_model``) splatted at 320x256, each loader once
+    and the native one again, bit for bit the Python loader's."""
+    from ucnerf_torch.data import native
+    from ucnerf_torch.data.base import load_colmap_sparse_depth
+    from ucnerf_torch.data.llff import load_poses_bounds
+
+    def timed_loads(path, args, reps):
+        out, times = {}, {"python": [], "native": []}
+        for _ in range(reps):
+            for name, fn in (("python", load_colmap_sparse_depth),
+                             ("native",
+                              native.load_colmap_sparse_depth_native)):
+                t0 = time.perf_counter()
+                out[name] = fn(str(path), *args)
+                times[name].append(time.perf_counter() - t0)
+        return out, {f"{k}_s": float(np.median(v)) for k, v in
+                     times.items()}
+
+    _, bds = load_poses_bounds(str(scene / "poses_bounds.npy"))
+    out, scan_s = timed_loads(scene, (ds.img_wh, 1.0 / ds.downsample, bds),
+                              3)
+    scan = dict(sparse_differences(out["native"], out["python"]), **scan_s,
+                splatted=sum(len(e["coords"]) for e in out["python"]))
+    check(scan["names"] and scan["shapes_equal"]
+          and scan["values_differing"] == 0,
+          f"native COLMAP loader vs Python on the scan: {scan}")
+    big = OUT_DIR.parent / "colmap_large"
+    shutil.rmtree(big, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        made = fabricate_colmap_model(big)
+        fabricate_s = time.perf_counter() - t0
+        out, big_s = timed_loads(big, ((320, 256), 4.0,
+                                       np.array([2.0, 5.0])), 1)
+        t0 = time.perf_counter()
+        again = native.load_colmap_sparse_depth_native(
+            str(big), (320, 256), 4.0, np.array([2.0, 5.0]))
+        big_s["native_again_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(big, ignore_errors=True)
+    large = dict(sparse_differences(out["native"], out["python"]), **big_s,
+                 **made, fabricate_s=fabricate_s,
+                 splatted=sum(len(e["coords"]) for e in out["python"]),
+                 native_again_equal=sparse_differences(
+                     again, out["native"])["values_differing"] == 0)
+    check(large["names"] and large["shapes_equal"]
+          and large["values_differing"] == 0
+          and large["native_again_equal"],
+          f"native COLMAP loader vs Python on the large model: {large}")
+    return dict(scan=scan, large=large)
+
+
 def phase_jpeg() -> dict:
     """The committed JPEG fixtures decode to the SHA-256 of PIL's pixels
     recorded beside them; the 1280x1024 one is timed (host clock)."""
@@ -1538,7 +1665,10 @@ def phase_scared(dev, tr: dict) -> dict:
     (launches = views x tiles, finite PSNR / SSIM and depth metrics
     against the GT depth), then K1 vs the plain MLP on its first view;
     (d) one ``serve`` request on the scan, an npz frame; (e) the JPEG
-    fixtures on the card's machine."""
+    fixtures on the card's machine; (f) the scan's sparse depth through
+    the native COLMAP loader, bit for bit the Python loader's, and both
+    loaders' times there and on a large fabricated model
+    (``native_colmap``)."""
     from ucnerf_torch import serve
     from ucnerf_torch.config import parse_config
     from ucnerf_torch.data import build_dataset
@@ -1645,6 +1775,7 @@ def phase_scared(dev, tr: dict) -> dict:
           f"{ {k: v.shape for k, v in frame.items()} }")
 
     jpeg = phase_jpeg()
+    colmap_native = native_colmap(SCAN_DIR / "scene0", cold)
     res = dict(load=load, steps=len(steps), step_ms=ms,
                steady_ms_per_step=float(np.median(ms[2:])),
                synthetic_steady_ms_per_step=tr["steady_ms_per_step"],
@@ -1656,7 +1787,8 @@ def phase_scared(dev, tr: dict) -> dict:
                k1_launches=eval_launches + serve_launches,
                kernel_vs_plain_val_frame=diff,
                serve_ms_per_frame=serve_summary["ms_per_frame"],
-               serve_launches=serve_launches, jpeg=jpeg, ckpt=str(ckpt))
+               serve_launches=serve_launches, jpeg=jpeg,
+               colmap_native=colmap_native, ckpt=str(ckpt))
     log("scared", **res)
     return res
 

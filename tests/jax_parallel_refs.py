@@ -10,7 +10,7 @@ does not collect it.
 (``_scene_dp_loss_fn`` on the batch sharded over 2 devices), each its
 loss, metrics and gradients; ``cascade`` (``make_view_sharded_cascade``
 on ``n`` devices) and ``render`` (``make_parallel_eval_render`` on the
-mesh ``spec["mesh"]``).
+mesh ``spec["mesh"]``); ``relu`` (``relu_choices``).
 """
 
 import jax
@@ -23,7 +23,9 @@ from ucnerf_tpu.models.factory import create_models
 from ucnerf_tpu.parallel import sharding
 from ucnerf_tpu.parallel.mesh import make_mesh
 from ucnerf_tpu.parallel.mvs_views import make_view_sharded_cascade
-from ucnerf_tpu.train.loop import to_device_batch
+from ucnerf_tpu.render.fast_feats import gen_pts_feats_fast
+from ucnerf_tpu.render.renderer import gen_dir_feature, make_feat_ctx
+from ucnerf_tpu.train.loop import scene_inputs, to_device_batch
 
 JIT_QUICK = {"xla_backend_optimization_level": 0}
 
@@ -43,6 +45,39 @@ def _scene_sharded(samples, mesh):
         mesh, P("data", *([None] * (x.ndim - 1))))), stacked)
 
 
+def relu_choices(cfg, nerf, mvs):
+    """``fn(params, batch, key)`` -> the sign pattern of each ReLU of the
+    JAX package's MLP in its serial train step (the fast featurization,
+    ``render_rays``' inputs rebuilt from its own functions), in the
+    port's call order: the trunk layers' ``dense * depth_bias``, the two
+    view heads, the blended alpha; each [N_rays, S, width]."""
+    def fn(p, batch, key):
+        imgs, mvs_out, conf, rays = scene_inputs(cfg, mvs, p, batch, key)
+        ctx = make_feat_ctx(mvs_out, conf, imgs[1:], batch["w2cs"][1:],
+                            batch["intrinsics"][1:])
+        feats = gen_pts_feats_fast(rays, ctx["stage_volumes"],
+                                   ctx["confidence"], ctx["quad_views"],
+                                   ctx["src_w2cs"], ctx["src_intrinsics"],
+                                   ctx["img_hw"])
+        d = rays["rays_d"]
+        dirs = gen_dir_feature(batch["w2cs"][0],
+                               d / jnp.linalg.norm(d, axis=-1)[..., None])
+        _, state = nerf.apply({"params": p["nerf"]}, rays["ndc"]["ndc"],
+                              dirs, feats, capture_intermediates=True,
+                              mutable=["intermediates"])
+        out = state["intermediates"]["nerf"]
+
+        def dense(name):
+            return out[name]["__call__"][0]
+        u = 1.0 - feats[..., -1:]
+        trunk = [dense(f"pts_linears_{i}") * dense("pts_bias_depth_fine")
+                 for i in range(cfg.netdepth)]
+        alpha = dense("alpha_linear") * (1.0 - u) + dense("alpha_linear_1") * u
+        return [z > 0 for z in (*trunk, dense("views_linears_0"),
+                                dense("view_confi_linears_0"), alpha)]
+    return fn
+
+
 def lowered(kind: str, spec: dict):
     cfg = Config(**spec["cfg"])
     nerf, mvs = create_models(cfg)
@@ -60,6 +95,9 @@ def lowered(kind: str, spec: dict):
         return _lower(jax.jit(jax.value_and_grad(loss, has_aux=True)), p,
                       *args)
     batch = to_device_batch(spec["sample"])
+    if kind == "relu":
+        return _lower(jax.jit(relu_choices(cfg, nerf, mvs)), p, batch,
+                      jax.random.PRNGKey(spec["seed"]))
     if kind == "cascade":
         fn = make_view_sharded_cascade(
             mvs, make_mesh((spec["n"],), ("data",)))

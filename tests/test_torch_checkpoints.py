@@ -4,7 +4,8 @@ bit and prune with ``keep``; their ``params.npz`` is the JAX params tree;
 reference ``ucnerf.tar`` / ``casmvsnet.ckpt`` files load equal to JAX's
 ``convert_reference_checkpoint``; a JAX orbax checkpoint reaches the
 port through ``scripts/export_params_npz.py``; ``gather_batch`` equals
-``SceneDataset.__getitem__`` bit for bit."""
+``SceneDataset.__getitem__`` bit for bit; the cascade's weights carried
+from the JAX tree equal the JAX package's export to reference naming."""
 
 import importlib.util
 import os
@@ -19,8 +20,9 @@ import jax
 from ucnerf_tpu.models.factory import init_params as j_init_params
 from ucnerf_tpu.train.loop import TrainState as JTrainState
 from ucnerf_tpu.utils import checkpoint_io as j_ckpt
+from ucnerf_tpu.utils.checkpoint_io import export_casmvsnet_state_dict
 
-from ucnerf_torch.config import parse_config
+from ucnerf_torch.config import Config, parse_config
 from ucnerf_torch.data import build_dataset
 from ucnerf_torch.data.device_store import (build_store, gather_batch,
                                             sample_indices, store_nbytes)
@@ -29,6 +31,7 @@ from ucnerf_torch.render.serving import to_device_batch
 from ucnerf_torch.train.loop import TrainState, make_optimizer
 from ucnerf_torch.utils import checkpoint_io
 from ucnerf_torch.utils.checkpoint_io import (jax_params_from_state_dict,
+                                              mvs_state_dict_from_jax,
                                               state_dict_from_jax)
 
 from test_torch_train import ARGS, H, W, _jcfg
@@ -180,6 +183,22 @@ def test_reference_checkpoints_match_jax_conversion(tmp_path):
     torch.save({"something": torch.zeros(1)}, bad)
     with pytest.raises(ValueError, match="unrecognized"):
         checkpoint_io.load_params(cfg.replace(ckpt=bad), "cpu")
+
+
+def test_state_dict_from_jax_matches_export():
+    """The cascade's seeded weights (V=4) carried into the JAX tree and
+    back equal the JAX package's export to reference naming, key for key,
+    less the BN running statistics the port does not keep."""
+    params = jax_params_from_state_dict({"mvs": init_params(
+        Config(view_num=4), torch.Generator().manual_seed(0), "cpu")["mvs"]}
+    )["mvs"]
+    ours = mvs_state_dict_from_jax(params)
+    ref = {k: v for k, v in export_casmvsnet_state_dict(params).items()
+           if not k.endswith(("running_mean", "running_var",
+                              "num_batches_tracked"))}
+    assert sorted(ours) == sorted(ref)
+    for k in ref:
+        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
 
 
 def test_gather_batch_bit_exact_over_two_epochs():

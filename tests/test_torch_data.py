@@ -1,8 +1,9 @@
 """The port's scene datasets against the JAX package's, on the CPU: the JPEG
 decoder against PIL, the resize twins against PIL and cv2, COLMAP I/O and
 the LLFF poses, every field of every sample of ScaredDataset (JPEG and PNG
-frames), HamlynDataset and FinetuneDataset, the scene cache both ways, the
-nearest pyramid, and ``python -m ucnerf_torch.train --preset train_hamlyn``.
+frames), HamlynDataset and FinetuneDataset, the scene cache both ways, and
+the nearest pyramid (``python -m ucnerf_torch.train --preset
+train_hamlyn`` is in ``tests/test_torch_data_hamlyn.py``).
 
 Scenes are fabricated as ``tests/test_scared_pipeline.py`` builds them
 (PIL-written frames, COLMAP binaries from ``_make_model``), with GT depth
@@ -11,7 +12,6 @@ the DPT prior, whose resize is cv2's float32 INTER_LINEAR and the port's a
 float64 twin (max abs <= 1e-6 at values in [0, 5]).
 """
 
-import contextlib
 import hashlib
 import io
 import json
@@ -396,35 +396,3 @@ def test_presets_reach_a_dataset(scenes):
         assert ds.metas and type(ds).__name__.lower().startswith(
             cfg.dataset_name)
 
-
-def test_train_hamlyn_cli_step_and_eval(scenes, tmp_path):
-    """``python -m ucnerf_torch.train --preset train_hamlyn --device cpu`` at
-    160x128 (imgScale 0.5): one store-fed step to a checkpoint, then
-    ``--eval`` of it over the val split with finite PSNR, SSIM and depth
-    metrics against the GT depth."""
-    from ucnerf_torch.train import __main__ as train_cli
-
-    args = ["--preset", "train_hamlyn", "--device", "cpu", "--datadir",
-            scenes["hamlyn"], "--imgScale_train", "0.5", "--imgScale_test",
-            "0.5", "--view_num", "3", "--N_samples", "3", "--batch_size",
-            "80", "--patch_size", "4", "--patch_num", "4", "--n_depth_rays",
-            "32", "--ndepths", "8", "8", "8", "--samples_per_scene", "1",
-            "--chunk", "20480", "--nerf_dtype", "float32", "--basedir",
-            str(tmp_path), "--val_panels", "none"]
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        summary = train_cli.main([*args, "--expname", "t",
-                                  "--stop_after_steps", "1"])
-        assert summary["steps"] == 1 and summary["stopped"]
-        ckpt = tmp_path / "t" / "ckpts" / "step_00000001"
-        ev = train_cli.main([*args, "--expname", "e", "--eval", "--ckpt",
-                             str(ckpt)])
-    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
-             if ln.startswith("{")]
-    [step] = [ln for ln in lines if "step" in ln]
-    assert np.isfinite(step["loss"])
-    [val] = [ln for ln in lines if "val_step" in ln]
-    assert val["views"] == 3
-    m = ev["val"]
-    assert all(np.isfinite(m[k]) for k in ("psnr", "ssim", "abs_rel", "rmse"))
-    assert (tmp_path / "e" / "test_results" / "rgb_evaluation.txt").is_file()

@@ -1,5 +1,6 @@
-"""ucnerf_torch and chip_smoke.py import nothing of JAX, of the JAX package,
-of the image libraries the card's machine lacks, or of transformers."""
+"""ucnerf_torch, chip_smoke.py and chip_quality.py import nothing of JAX,
+of the JAX package, of the image libraries the card's machine lacks, or
+of transformers."""
 
 import ast
 import subprocess
@@ -14,7 +15,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ucnerf_tpu", "cv2", "PIL",
              "imageio", "matplotlib", "transformers"}
-FILES = sorted((ROOT / "ucnerf_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "ucnerf_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "chip_quality.py"]
 
 
 def _imported_roots(path: Path):
@@ -38,8 +40,8 @@ def test_serve_imports_with_jax_blocked():
     ``ucnerf_torch.render_path``, and the modules they load (validation,
     metrics, LPIPS, checkpoints, the device store, writer, prefetcher,
     profiling, PNG, panels, trajectories, the SCARED / Hamlyn / finetune
-    datasets, COLMAP I/O, poses, the JPEG decoder's binding and the resize
-    twins), and ``ucnerf_torch.preprocess`` and
+    datasets, COLMAP I/O, poses, the JPEG decoder's and the native COLMAP
+    loader's bindings and the resize twins), and ``ucnerf_torch.preprocess`` and
     ``ucnerf_torch.convert_weights`` with theirs (DPT, COLMAP's wrapper and
     dense I/O), the ops tail (geometry, the grid samplers) and the
     multi-rank modules (``ucnerf_torch.parallel.*``), import when
@@ -62,6 +64,7 @@ def test_serve_imports_with_jax_blocked():
             "import ucnerf_torch.data.colmap, ucnerf_torch.data.llff\n"
             "import ucnerf_torch.data.image_io, ucnerf_torch.data.resize\n"
             "import ucnerf_torch.utils.jpeg, ucnerf_torch.kernels.build\n"
+            "import ucnerf_torch.data.native\n"
             "import ucnerf_torch.preprocess, ucnerf_torch.convert_weights\n"
             "import ucnerf_torch.models.dpt, ucnerf_torch.data.colmap_dense\n"
             "import ucnerf_torch.data.colmap_wrapper\n"

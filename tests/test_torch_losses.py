@@ -1,8 +1,8 @@
 """ucnerf_torch's loss modules against the JAX package's on the same random
 inputs (rtol 1e-5, as ``tests/test_loss_parity.py`` holds the JAX ones to
-the reference), the gradients of the 5-term total, and the scene losses at
-bf16 and under --mvs_only (the float32 scene loss and its gradients are in
-``tests/test_torch_train.py``)."""
+the reference) and the gradients of the 5-term total (the scene losses and
+their gradients are in ``tests/test_torch_train_grads.py`` and
+``tests/test_torch_train_bf16.py``)."""
 
 import numpy as np
 import pytest
@@ -14,12 +14,7 @@ from ucnerf_tpu.config import Config as JConfig
 from ucnerf_tpu.train import losses as j_loss
 
 from ucnerf_torch.config import Config
-from ucnerf_torch.render.serving import to_device_batch
-from ucnerf_torch.train import loop as t_loop
 from ucnerf_torch.train import losses as t_loss
-
-from test_torch_train import (SCENE_REFS, _draws, _port,  # noqa: F401
-                              case, jax_scene_refs)
 
 torch.set_num_threads(1)
 
@@ -161,35 +156,3 @@ def test_total_loss_terms_and_gradients(rng):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL,
                                    atol=1e-6 * np.abs(want).max())
-
-
-def test_bf16_and_mvs_only_losses_match_jax(case):
-    """At --nerf_dtype bfloat16 the loss terms agree to 2e-2 (the MLP
-    rounds to bf16 at the same points on both sides; the two cascades'
-    float32 round-off moves the rounded values).  --mvs_only: the loss
-    and its depth diagnostic agree to 6e-3, and a train step leaves the
-    MLP as it was (zero gradients, zero Adam moments)."""
-    batch = to_device_batch(case["sample"], "cpu")
-    for name, rtol in (("bf16", 2e-2), ("mvs_only", 6e-3)):
-        flags, seed, _ = SCENE_REFS[name]
-        cfg = case["cfg"].replace(**flags)
-        _, terms_j = jax_scene_refs(("bf16", "mvs_only"))[name]
-        nerf, mvs = _port(cfg, case["params"])
-        with torch.no_grad():
-            _, terms = t_loop.scene_loss(cfg, nerf, mvs, batch,
-                                         _draws(cfg, jax.random.PRNGKey(
-                                             seed)))
-        assert sorted(terms) == sorted(terms_j)
-        for name in terms_j:
-            np.testing.assert_allclose(float(terms[name]),
-                                       float(terms_j[name]), rtol=rtol,
-                                       err_msg=f"{flags} {name}")
-
-    before = {n: p.detach().clone() for n, p in nerf.named_parameters()}
-    state = t_loop.TrainState(nerf, mvs, t_loop.make_optimizer(cfg, nerf,
-                                                               mvs))
-    t_loop.make_train_step(cfg, t_loop.make_lr_schedule(cfg, 10))(
-        state, batch, None)
-    assert state.step == 1
-    for n, p in nerf.named_parameters():
-        torch.testing.assert_close(p.detach(), before[n], rtol=0, atol=0)

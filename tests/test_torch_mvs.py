@@ -1,6 +1,9 @@
 """ucnerf_torch's CascadeMVSNet against the JAX package's on the same
 weights and inputs (32x64, V=4), in float32 and with the bfloat16 compute
-dtype (``--mvs_dtype bfloat16``)."""
+dtype (``--mvs_dtype bfloat16``).  (The weights' export is held in
+``tests/test_torch_checkpoints.py``, the dtype names in
+``tests/test_torch_options.py``.)  Three tests, so that pytest-xdist's
+``--dist loadfile`` queues this file after the suite's long JAX files."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -13,11 +16,9 @@ import jax.numpy as jnp
 
 from ucnerf_tpu.config import Config as JConfig
 from ucnerf_tpu.models.factory import create_models as j_create_models
-from ucnerf_tpu.utils.checkpoint_io import export_casmvsnet_state_dict
 
 from ucnerf_torch.config import Config
-from ucnerf_torch.models.factory import (compute_dtype, create_models,
-                                         init_params)
+from ucnerf_torch.models.factory import create_models, init_params
 from ucnerf_torch.utils.checkpoint_io import (jax_params_from_state_dict,
                                               mvs_state_dict_from_jax)
 
@@ -93,18 +94,6 @@ def port(case):
         return mvs, inputs, mvs(*inputs)
 
 
-def test_state_dict_from_jax_matches_export(case):
-    """Equal to the JAX package's export to reference naming, key for key,
-    less the BN running statistics the port does not keep."""
-    ours = mvs_state_dict_from_jax(case["params"])
-    ref = {k: v for k, v in export_casmvsnet_state_dict(case["params"]).items()
-           if not k.endswith(("running_mean", "running_var",
-                              "num_batches_tracked"))}
-    assert sorted(ours) == sorted(ref)
-    for k in ref:
-        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
-
-
 def test_cascade_matches_jax(case, port):
     _, _, ours = port
     ref = case["out"]
@@ -168,14 +157,3 @@ def test_bf16_cascade_matches_jax_bf16(case):
     over = {k: (port[k], bound[k]) for k in port if port[k] > bound[k]}
     assert not over, over
 
-
-def test_mvs_dtype_names():
-    """``--mvs_dtype`` takes the floating dtype names ``jnp.dtype`` takes
-    (float32 means no cast); a name that is not a torch floating dtype
-    raises ValueError, before any model is built."""
-    assert compute_dtype("float32") is None
-    assert compute_dtype("bfloat16") == torch.bfloat16
-    assert compute_dtype("float16") == compute_dtype("half") == torch.float16
-    for name in ("int8", "bf16", "complex64"):
-        with pytest.raises(ValueError, match="mvs_dtype"):
-            create_models(Config(view_num=V, mvs_dtype=name), "cpu")

@@ -257,3 +257,23 @@ def test_color_volumes(case):
                                             _t(inp["far"]), (H, W))
     assert got.shape == j["volume_feats"].shape == (40, S, 12 * V1)
     _close(got, j["volume_feats"])
+
+
+def test_draw_train_randomness_shapes_ranges_and_seed():
+    H, W, PS, PN, N_UNIFORM = 32, 64, 4, 4, 16
+    kw = dict(H=H, W=W, patch_size=PS, patch_num=PN, n_uniform=N_UNIFORM,
+              n_rays=100, n_samples=9)
+    a = t_rays.draw_train_randomness(torch.Generator().manual_seed(5), **kw)
+    b = t_rays.draw_train_randomness(torch.Generator().manual_seed(5), **kw)
+    c = t_rays.draw_train_randomness(torch.Generator().manual_seed(6), **kw)
+    assert a.gumbel.shape == (2, H * W) and torch.isfinite(a.gumbel).all()
+    assert a.shifts.shape == (2, 2, PN // 2)
+    assert 0 <= a.shifts.min() and a.shifts.max() < PS
+    assert a.xs.shape == a.ys.shape == (N_UNIFORM,)
+    assert 0 <= a.xs.min() and a.xs.max() < W
+    assert 0 <= a.ys.min() and a.ys.max() < H
+    assert a.jitter.shape == (100, 9)
+    assert 0 <= a.jitter.min() and a.jitter.max() < 1
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert not torch.equal(a.gumbel, c.gumbel)

@@ -49,16 +49,18 @@ from ucnerf_torch.train import loop as t_loop
 from ucnerf_torch.utils.checkpoint_io import state_dict_from_jax
 
 from test_torch_train import ARGS, _case, _draws
+from torch_parallel_worker import relu_choices
 
 torch.set_num_threads(1)
 
 TIMEOUT = 60          # s for each set of spawned ranks
-RAY_CASES = {         # name: (flags, JAX key)
-    "plain": ({}, 21),
-    # 85 + 32 rays, odd, and the 3 source views split too; JAX's view
-    # test uses key 5, where the port's serial step itself is outside the
-    # gradient envelope of JAX's (tests/view_split_key_gaps.py)
-    "padded_views": ({"batch_size": 85, "shard_mvs_views": True}, 11),
+RAY_CASES = {         # name: (flags, JAX key, JAX's ReLU choices)
+    "plain": ({}, 21, False),
+    # 85 + 32 rays, odd, and the 3 source views split too, at the key of
+    # JAX's view test; at this key a few of the MLP's pre-activations lie
+    # within round-off of 0 and their ReLUs flip between the packages
+    # (tests/view_split_key_gaps.py), so the port takes JAX's choices
+    "padded_views": ({"batch_size": 85, "shard_mvs_views": True}, 5, True),
 }
 
 
@@ -118,14 +120,17 @@ def run_both(port_fn, todo: dict):
         return port.result(), {k: f.result() for k, f in futures.items()}
 
 
-def _port_serial(case, cfg, samples, draws):
-    """The port's serial loss (the mean over ``samples``) and gradients."""
+def _port_serial(case, cfg, samples, draws, relu=None):
+    """The port's serial loss (the mean over ``samples``) and gradients;
+    ``relu``: the ReLU choices of the one sample's step
+    (``relu_choices``)."""
     nerf, mvs = create_models(cfg, "cpu", case["params"])
     losses = []
     for sample, d in zip(samples, draws):
-        loss, _ = t_loop.scene_loss(cfg, nerf, mvs,
-                                    to_device_batch(sample, "cpu"), d)
-        (loss / len(samples)).backward()
+        with relu_choices(relu):
+            loss, _ = t_loop.scene_loss(cfg, nerf, mvs,
+                                        to_device_batch(sample, "cpu"), d)
+            (loss / len(samples)).backward()
         losses.append(float(loss.detach()))
     grads = {f"{name}/{n}": p.grad.numpy()
              for name, m in (("nerf", nerf), ("mvs", mvs))
@@ -173,26 +178,36 @@ def case():
 
 @pytest.fixture(scope="module")
 def rays(case):
-    """Each ray case's config and draws, the port's 2-rank step and JAX's
-    ``_ray_dp_loss_fn`` on a 2-device mesh."""
-    cases = {}
-    for name, (flags, seed) in RAY_CASES.items():
-        cfg = case["cfg"].replace(**flags)
-        cases[name] = (cfg, _draws(cfg, jax.random.PRNGKey(seed)))
+    """Each ray case's config and draws, JAX's ReLU choices where the case
+    asks for them (its serial step's), the port's 2-rank step taking them
+    and JAX's ``_ray_dp_loss_fn`` on a 2-device mesh."""
+    cases, pending = {}, {}
+    with ThreadPoolExecutor(1) as pool:
+        for name, (flags, seed, same_relu) in RAY_CASES.items():
+            cfg = case["cfg"].replace(**flags)
+            cases[name] = (cfg, _draws(cfg, jax.random.PRNGKey(seed)))
+            if same_relu:
+                pending[name] = pool.submit(
+                    jax_parallel_refs.run, *jax_parallel_refs.lowered(
+                        "relu", dict(jax_spec(case, sample=case["sample"],
+                                              seed=seed),
+                                     cfg=dataclasses.asdict(cfg))))
+        relu = {}
 
-    def port():
-        jobs = [dict(kind="loss", argv=_argv(cfg, parallel_mode="rays",
-                                             **RAY_CASES[name][0]),
-                     params=case["np_params"], samples=[case["sample"]],
-                     draws=[_draw_arrays(draws)])
-                for name, (cfg, draws) in cases.items()]
-        return dict(zip(cases, _spawn((2,), ("data",), jobs)))
+        def port():
+            relu.update({k: f.result() for k, f in pending.items()})
+            jobs = [dict(kind="loss", argv=_argv(cfg, parallel_mode="rays",
+                                                 **RAY_CASES[name][0]),
+                         params=case["np_params"], samples=[case["sample"]],
+                         draws=[_draw_arrays(draws)], relu=relu.get(name))
+                    for name, (cfg, draws) in cases.items()]
+            return dict(zip(cases, _spawn((2,), ("data",), jobs)))
 
-    todo = {name: ("rays", dict(
-        jax_spec(case, sample=case["sample"], seed=RAY_CASES[name][1]),
-        cfg=dataclasses.asdict(cfg))) for name, (cfg, _) in cases.items()}
-    got, refs = run_both(port, todo)
-    return dict(cases=cases, port=got, jax=refs)
+        todo = {name: ("rays", dict(
+            jax_spec(case, sample=case["sample"], seed=RAY_CASES[name][1]),
+            cfg=dataclasses.asdict(cfg))) for name, (cfg, _) in cases.items()}
+        got, refs = run_both(port, todo)
+    return dict(cases=cases, port=got, jax=refs, relu=relu)
 
 
 @pytest.mark.parametrize("name", list(RAY_CASES))
@@ -202,8 +217,10 @@ def test_ray_dp_matches_jax_and_serial(case, rays, name):
     3 source views split too, padded with a zero view), against
     ``_ray_dp_loss_fn`` on a 2-device mesh and the port's serial step
     (loss rtol 1e-5; 1e-4 with the view split, whose sums change
-    order)."""
+    order).  The view-split case's port runs take the ReLU choices of
+    JAX's serial step at its key."""
     cfg, draws = rays["cases"][name]
-    serial = _port_serial(case, cfg, [case["sample"]], [draws])
+    serial = _port_serial(case, cfg, [case["sample"]], [draws],
+                          rays["relu"].get(name))
     check_step(rays["port"][name], rays["jax"][name], serial,
                1e-4 if cfg.shard_mvs_views else 1e-5)

@@ -266,3 +266,12 @@ def test_render_path_cli(served, tmp_path, capsys):
         rgb, depth, _ = renderer.render_np(c2w)
         np.testing.assert_array_equal(data["rgb"][i], rgb)
         np.testing.assert_array_equal(data["depth"][i], depth)
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card and without an explicit CPU request the entry point
+    raises instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    with pytest.raises(RuntimeError, match="cpu"):
+        serve.build_renderer(parse_config(ARGS))

@@ -129,12 +129,3 @@ def test_batch_mode_cli(case, tmp_path, capsys):
     np.testing.assert_array_equal(
         read_png(str(tmp_path / "f.png")),
         (np.clip(frames[0]["rgb"], 0, 1) * 255).astype(np.uint8))
-
-
-def test_entry_points_default_to_the_card():
-    """Without a card and without an explicit CPU request the entry point
-    raises instead of falling back."""
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the default device exists")
-    with pytest.raises(RuntimeError, match="cpu"):
-        serve.build_renderer(parse_config(ARGS))

@@ -8,8 +8,10 @@ results (numpy), the other ranks None.  A job is a dict with ``kind``:
 
 - ``loss``: one multi-rank train step's loss of ``parallel_mode``
   (``argv``), backward and the gradient mean over the ranks; ``samples``
-  and ``draws`` hold one numpy sample and one draw tuple per scene slot.
-  Result: the metrics and the gradients by state-dict name.
+  and ``draws`` hold one numpy sample and one draw tuple per scene slot,
+  and ``relu``, when given, the ReLU choices the plain MLP takes
+  (``relu_choices``).  Result: the metrics and the gradients by
+  state-dict name.
 - ``cascade``: the view-sharded cascade's outputs on ``sample``, over
   the first ``ranks`` ranks.
 - ``render``: the sharded eval render (through the fused-MLP wrapper) of
@@ -31,6 +33,7 @@ results (numpy), the other ranks None.  A job is a dict with ``kind``:
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import urllib.error
@@ -38,18 +41,62 @@ import urllib.request
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from ucnerf_torch import serve
 from ucnerf_torch.config import parse_config
 from ucnerf_torch.kernels.fused_mlp import render_mlp
+from ucnerf_torch.models import nerf as nerf_module
 from ucnerf_torch.models.factory import create_models
 from ucnerf_torch.ops.rays import TrainDraws
 from ucnerf_torch.parallel.collectives import average_gradients
 from ucnerf_torch.parallel.mvs_views import make_view_sharded_cascade
-from ucnerf_torch.parallel.sharding import parallel_loss, scene_slot
+from ucnerf_torch.parallel.sharding import (parallel_loss, scene_slot,
+                                            shard_rays)
 from ucnerf_torch.render.serving import to_device_batch
 from ucnerf_torch.train import __main__ as train_cli
 from ucnerf_torch.train.loop import make_eval_render, run_mvs
+
+
+class _ReluChoices:
+    """``torch.nn.functional`` for ``ucnerf_torch.models.nerf``, whose
+    ``relu`` keeps the sign pattern it is given instead of its input's."""
+
+    def __init__(self, masks, rank, n_ranks, record):
+        self.masks, self.rank, self.n_ranks = masks, rank, n_ranks
+        self.record, self.calls = record, 0
+
+    def __getattr__(self, name):
+        return getattr(F, name)
+
+    def relu(self, x):
+        if self.record is not None:
+            self.record.append((x > 0).numpy())
+        if self.masks is None:
+            return F.relu(x)
+        mask = torch.tensor(self.masks[self.calls % len(self.masks)])
+        self.calls += 1
+        mask = shard_rays(mask, mask.shape[0], self.n_ranks, self.rank)
+        assert mask.shape == x.shape, (mask.shape, x.shape)
+        return x * mask.to(x.dtype)
+
+
+@contextlib.contextmanager
+def relu_choices(masks=None, rank=0, n_ranks=1, record=None):
+    """Within the block the plain MLP's ReLUs (``models/nerf.py``, in call
+    order: the six trunk layers, the two view heads, the blended alpha)
+    take the choices ``masks`` (one boolean [N_rays, S, width] array per
+    ReLU, over the step's whole ray batch; this rank's slice is the one
+    ``shard_rays`` gives it): ``x * mask`` in place of ``relu(x)``, so a
+    pre-activation within round-off of 0 passes or stops its gradient as
+    the run that made the masks did.  ``record``, a list, collects each
+    ReLU's own sign pattern."""
+    saved = nerf_module.F
+    nerf_module.F = _ReluChoices(masks, rank, n_ranks, record)
+    try:
+        yield
+    finally:
+        nerf_module.F = saved
 
 
 def _numpy(tree):
@@ -64,8 +111,9 @@ def _loss(mesh, job):
     slot = scene_slot(cfg, mesh)
     batch = to_device_batch(job["samples"][slot], "cpu")
     draws = TrainDraws(*(torch.from_numpy(d) for d in job["draws"][slot]))
-    loss, metrics = parallel_loss(cfg, mesh)(nerf, mvs, batch, draws)
-    loss.backward()
+    with relu_choices(job.get("relu"), mesh.rank, mesh.size):
+        loss, metrics = parallel_loss(cfg, mesh)(nerf, mvs, batch, draws)
+        loss.backward()
     params = [p for m in (nerf, mvs) for p in m.parameters()]
     average_gradients(params, mesh.group())
     grads = {f"{name}/{n}": p.grad.numpy()
