@@ -5,8 +5,8 @@ The chain is the one ``README.md`` gives for ``python -m
 ucnerf_torch.train``, at the operating point of the JAX package's
 chained run (``BASELINE.md``, round-5 results): the synthetic scene at
 320x256 with 7 views, the ``train_scared`` hyperparameters, store-fed,
-seed 7, the f32 cascade and the bf16 MLP (each the default), 200 steps an
-epoch:
+seed 7 (``--seed``), the f32 cascade and the bf16 MLP (each the
+default), 200 steps an epoch:
 
     boot    --mvs_only                                      10 epochs
     full    --ckpt <boot's last> --ckpt_params_only         30 epochs
@@ -39,9 +39,10 @@ the last line, every phase's totals, final validation and its band: PSNR
 no more than 1.0 dB below the JAX package's, SSIM no more than 0.015
 below, abs_rel no more than 1.25x.  ``quality.json`` in the run directory
 keeps every segment.  A missed band is reported, not fatal; a phase that
-fails, or a validation that is not finite, exits non-zero.  ``--extra``
-appends flags to every trainer call (``--extra "--device cpu ..."`` for
-a small run on the CPU).
+fails, or a validation that is not finite, exits non-zero.  ``--seed``
+(default 7) seeds every phase: give each seed a ``--basedir`` (and
+``--carry``) of its own.  ``--extra`` appends flags to every trainer call
+(``--extra "--device cpu ..."`` for a small run on the CPU).
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ PHASES = {  # name: (epochs, extra flags, the phase it starts from)
 }
 STEPS_PER_EPOCH = 200
 BASE = ["--preset", "train_scared", "--dataset_name", "synthetic",
-        "--img_wh", "320", "256", "--view_num", "7", "--seed", "7",
+        "--img_wh", "320", "256", "--view_num", "7",
         "--samples_per_scene", str(STEPS_PER_EPOCH)]
 # the JAX package's chained run (BASELINE.md, round 5): final validation
 JAX_QUALITY = {"boot": {"abs_rel": 0.0812},
@@ -112,22 +113,23 @@ def prune(basedir: str, phase: str, done: bool) -> None:
             os.remove(state)
 
 
-def run_segment(phase: str, basedir: str, until, extra: list) -> dict:
+def run_segment(phase: str, basedir: str, until, extra: list,
+                seed: int = 7) -> dict:
     epochs, flags, parent = PHASES[phase]
     own = ckpts(basedir, phase)
-    argv = [*BASE, "--num_epochs", str(epochs), *flags, "--basedir",
-            basedir, "--expname", phase]
+    argv = [*BASE, "--seed", str(seed), "--num_epochs", str(epochs), *flags,
+            "--basedir", basedir, "--expname", phase]
     if own:
         start = step_of(own[-1])
         argv += ["--ckpt", own[-1]]
     else:
         start = 0
         if parent is not None:
-            seed = ckpts(basedir, parent)
-            if not seed:
+            found = ckpts(basedir, parent)
+            if not found:
                 raise RuntimeError(f"phase {phase} needs phase {parent}'s "
                                    f"checkpoint in {basedir}")
-            argv += ["--ckpt", seed[-1], "--ckpt_params_only"]
+            argv += ["--ckpt", found[-1], "--ckpt_params_only"]
     if until is not None:
         argv += ["--stop_after_steps", str(until)]
     argv += extra
@@ -199,6 +201,7 @@ def main(argv=None) -> int:
     parser.add_argument("--basedir", default="chiprun_out/quality")
     parser.add_argument("--carry", default="quality_carry")
     parser.add_argument("--extra", default="")
+    parser.add_argument("--seed", type=int, default=7)
     args = parser.parse_args(argv)
     device = dict(card=card(), torch=torch.__version__,
                   # the trainer sets neither: PyTorch's defaults
@@ -216,7 +219,7 @@ def main(argv=None) -> int:
         if any(s["phase"] == phase and s["done"] for s in segments):
             continue
         seg = run_segment(phase, args.basedir, args.until if last else None,
-                          shlex.split(args.extra))
+                          shlex.split(args.extra), args.seed)
         segments.append(seg)
         with open(record, "w") as fh:
             json.dump(dict(device=device, segments=segments), fh, indent=1)

@@ -7,7 +7,8 @@ ucnerf_torch.render_path``, and trains at the SCARED train point through
 checkpoint, its resume against an uninterrupted run (both with
 ``--deterministic``), ``--eval`` of the checkpoint over the whole val split
 with ``--val_panels all``, the device scene store against host loading,
-and an overfit of one sample.  Phase ``options`` runs the cascade's and
+an overfit of one sample, and steps at an odd ``--patch_num`` (card
+against CPU, and the trainer's).  Phase ``options`` runs the cascade's and
 the renderer's options at the train point: ``--mvs_dtype bfloat16`` (its
 cascade against float32, trainer steps, the FeatureNet's weight gradients
 profiled in both dtypes, a ``--deterministic`` step run twice, bit for
@@ -157,6 +158,10 @@ SMALL_ARGS = ["--dataset_name", "synthetic", "--view_num", "4", "--N_samples",
               "4", "--n_depth_rays", "32", "--chunk", "256", "--num_epochs",
               "4", "--lrate", "5e-4", "--ndepths", "8", "8", "8",
               "--nerf_dtype", "float32"]
+
+
+# an odd --patch_num: at SMALL_ARGS (card vs CPU) and at the train point
+ODD_PATCH_NUM = (5, 25)
 
 
 def check(ok: bool, msg: str):
@@ -684,10 +689,10 @@ def grad_envelope(got: dict, want: dict) -> dict:
                 worst=rels[worst], worst_tensor=worst)
 
 
-def card_vs_cpu_step(dev) -> dict:
-    """One loss and its gradients at the CPU tests' small shape, with the
-    same weights and the same draws, on the card and on the CPU (float32,
-    TF32 off)."""
+def card_vs_cpu_step(dev, extra=()) -> dict:
+    """One loss and its gradients at the CPU tests' small shape (and the
+    flags ``extra``), with the same weights and the same draws, on the
+    card and on the CPU (float32, TF32 off)."""
     from ucnerf_torch.config import parse_config
     from ucnerf_torch.data import build_dataset
     from ucnerf_torch.models.factory import create_models, init_params
@@ -695,14 +700,14 @@ def card_vs_cpu_step(dev) -> dict:
     from ucnerf_torch.render.serving import to_device_batch
     from ucnerf_torch.train.loop import scene_loss
 
-    cfg = parse_config(SMALL_ARGS)
+    cfg = parse_config([*SMALL_ARGS, *extra])
     sample = build_dataset(cfg, "train")[0]
     H, W = sample["images"].shape[1:3]
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     draws = draw_train_randomness(
         torch.Generator().manual_seed(1), H=H, W=W,
         patch_size=cfg.patch_size, patch_num=cfg.patch_num,
-        n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_train_rays,
+        n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_built_rays,
         n_samples=cfg.N_samples)
     out = []
     for d in (torch.device("cpu"), dev):
@@ -779,7 +784,7 @@ def store_vs_host(cfg, dev) -> dict:
         draws = draw_train_randomness(
             torch.Generator(device=dev).manual_seed(3), H=H, W=W,
             patch_size=cfg.patch_size, patch_num=cfg.patch_num,
-            n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_train_rays,
+            n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_built_rays,
             n_samples=cfg.N_samples)
         with torch.no_grad():
             losses.append(float(scene_loss(cfg, nerf, mvs, batch, draws)[0]))
@@ -800,8 +805,9 @@ def phase_train(dev):
     ``deterministic_kernels``, so that their comparisons see the code and
     not the card's atomics.  Then an overfit of one sample through
     make_train_step (default kernels), its last step profiled, the same
-    step on deterministic kernels, and one small-shape step on the card vs
-    the CPU."""
+    step on deterministic kernels, one small-shape step on the card vs
+    the CPU, again at an odd ``--patch_num``, and two trainer steps at an
+    odd ``--patch_num`` at the train point."""
     from ucnerf_torch.config import parse_config
     from ucnerf_torch.data import build_dataset
     from ucnerf_torch.data.base import unnormalize_image
@@ -973,7 +979,7 @@ def phase_train(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     draw_kw = dict(H=H, W=W, patch_size=cfg.patch_size,
                    patch_num=cfg.patch_num, n_uniform=cfg.n_uniform_rays,
-                   n_rays=cfg.n_train_rays, n_samples=cfg.N_samples)
+                   n_rays=cfg.n_built_rays, n_samples=cfg.N_samples)
     losses, overfit_ms = [], []
     for i in range(OVERFIT_STEPS):
         draws = draw_train_randomness(gen, **draw_kw)
@@ -1004,20 +1010,37 @@ def phase_train(dev):
         shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
 
     cc = card_vs_cpu_step(dev)
-    check(abs(cc["loss_rel"]) <= 1e-4 and cc["grads"]["median"] < 5e-3
-          and cc["grads"]["worst"] < 3e-2,
-          f"card vs CPU loss/gradients out of bounds: {cc}")
+    # an odd --patch_num: the batch holds one patch fewer than
+    # n_train_rays counts (tests/test_torch_train_patch_odd.py)
+    cc_odd = card_vs_cpu_step(dev, ["--patch_num", str(ODD_PATCH_NUM[0])])
+    for c in (cc, cc_odd):
+        check(abs(c["loss_rel"]) <= 1e-4 and c["grads"]["median"] < 5e-3
+              and c["grads"]["worst"] < 3e-2,
+              f"card vs CPU loss/gradients out of bounds: {c}")
+    shutil.rmtree(OUT_DIR / "odd_patch", ignore_errors=True)
+    odd, odd_lines, _ = run_trainer("odd_patch", "--patch_num",
+                                    str(ODD_PATCH_NUM[1]),
+                                    "--stop_after_steps", "2")
+    shutil.rmtree(OUT_DIR / "odd_patch", ignore_errors=True)
+    ocfg = parse_config([*TRAIN_ARGS, "--patch_num", str(ODD_PATCH_NUM[1])])
+    odd_steps = step_lines(odd_lines)
+    check(len(odd_steps) == 2
+          and all(np.isfinite(ln["loss"]) for ln in odd_steps)
+          and ocfg.n_built_rays < ocfg.n_train_rays
+          and abs(odd["rays_per_s"] / (ocfg.n_built_rays
+                                       / odd["median_step_ms"] * 1e3) - 1)
+          < 1e-9, f"odd --patch_num steps: {odd_steps}, {odd}")
 
     overfit_ms_median = float(np.median(overfit_ms[2:]))
     res = dict(steps=len(steps), step_ms=ms,
                # the CLI runs, on deterministic kernels
                det_steady_ms_per_step=steady_ms,
                det_host_fed_steady_ms_per_step=resume["whole_steady_ms"],
-               rays_per_step=cfg.n_train_rays,
+               rays_per_step=cfg.n_built_rays,
                # the step on the card's default kernels (the overfit loop)
                steady_ms_per_step=overfit_ms_median,
                det_kernels_ms_per_step=float(np.median(det_ms[2:])),
-               train_rays_per_s=cfg.n_train_rays / overfit_ms_median * 1e3,
+               train_rays_per_s=cfg.n_built_rays / overfit_ms_median * 1e3,
                peak_mem_gib=peak_gib, cli_wall_s=wall, summary=summary,
                ckpt_save_s=saves[0]["seconds"], store_mb=store[0]["store_mb"],
                resume=resume, eval_views=val["views"],
@@ -1031,7 +1054,11 @@ def phase_train(dev):
                overfit_losses=losses, overfit_drop=1.0 - last / first,
                step_profile=profile,
                device_idle_share=profile["device_idle_share"],
-               card_vs_cpu=cc)
+               card_vs_cpu=cc, card_vs_cpu_odd_patch_num=cc_odd,
+               odd_patch_num=dict(patch_num=ODD_PATCH_NUM[1],
+                                  rays=ocfg.n_built_rays,
+                                  losses=[ln["loss"] for ln in odd_steps],
+                                  median_step_ms=odd["median_step_ms"]))
     log("train", **res)
     return res
 
@@ -1190,7 +1217,7 @@ def phase_options(dev, tr: dict, sv: dict) -> dict:
     draws = draw_train_randomness(
         torch.Generator(device=dev).manual_seed(1), H=H, W=W,
         patch_size=cfg.patch_size, patch_num=cfg.patch_num,
-        n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_train_rays,
+        n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_built_rays,
         n_samples=cfg.N_samples)
     for _ in range(3):
         step(state, batch, draws)
@@ -1220,7 +1247,7 @@ def phase_options(dev, tr: dict, sv: dict) -> dict:
         draws = draw_train_randomness(
             torch.Generator(device=dev).manual_seed(2), H=H, W=W,
             patch_size=cfg.patch_size, patch_num=cfg.patch_num,
-            n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_train_rays,
+            n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_built_rays,
             n_samples=cfg.N_samples)
         imgs, mvs_out, conf, rays = scene_inputs(lcfg, mvs, batch, draws)
         ctx = make_feat_ctx(mvs_out, conf, imgs[1:], batch["w2cs"][1:],
@@ -2162,7 +2189,7 @@ def mesh_steps(mesh, cases) -> dict:
         W, H = ds.img_wh
         kw = dict(H=H, W=W, patch_size=cfg.patch_size,
                   patch_num=cfg.patch_num, n_uniform=cfg.n_uniform_rays,
-                  n_rays=cfg.n_train_rays, n_samples=cfg.N_samples)
+                  n_rays=cfg.n_built_rays, n_samples=cfg.N_samples)
         ds.set_epoch(0)
         order = np.random.default_rng(np.random.SeedSequence(
             [cfg.seed % 2 ** 32, 1])).permutation(len(ds))

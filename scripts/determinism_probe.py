@@ -114,7 +114,7 @@ def main():
     draws = draw_train_randomness(
         torch.Generator(device=dev).manual_seed(1), H=H, W=W,
         patch_size=cfg.patch_size, patch_num=cfg.patch_num,
-        n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_train_rays,
+        n_uniform=cfg.n_uniform_rays, n_rays=cfg.n_built_rays,
         n_samples=cfg.N_samples)
     res = probe(cfg, dev, batch, draws)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -32,8 +32,7 @@ and beside it:
   output cotangent, compiled with XLA's excess precision and without:
   the output's max abs difference, the parameter gradients' median and
   worst rel, the features' gradient's rel;
-- (f) the port's plain MLP (the fused kernel's rounding) on the same
-  inputs against the exact JAX one;
+- (f) the port's plain MLP on the same inputs against the exact JAX one;
 - (g) the port's bf16 step against the exact JAX one at optimization
   level 0, with its own ReLU choices and with the JAX step's
   (``tests/torch_parallel_worker.py::relu_choices``);
@@ -41,16 +40,36 @@ and beside it:
   layers, the two view heads, the blended alpha): the JAX step at level
   0 against the default, and the port's step against the JAX step at
   level 0;
-- (f), (g) and (h) again with the port's plain MLP rounding as flax's
-  ``nn.Dense(dtype=bfloat16)`` does (the product, the bias and their sum
-  to bf16; ``_flax_rounding``, this script only).
+
+(f), (g) and (h) for each of four arms of the MLP's rounding
+(``tests/bf16_rounding.py``): the forward rounding of a
+dense layer, ``kernel`` (the fused kernel's: one rounding after the f32
+bias add) or ``flax`` (``nn.Dense(dtype=bfloat16)``'s: the product, the
+bias and their sum), times the backward, ``autograd`` (through f32
+operations on bf16 values) or ``xla`` (bf16 cotangents rounded where
+XLA's transpose rounds them).
 
     JAX_PLATFORMS=cpu python scripts/jax_option_gaps.py --bf16_step
+
+With ``--bf16_view_split`` it measures, at the same small shape and bf16
+MLP, the ray-DP view split of ``tests/test_torch_parallel.py``'s
+``padded_views`` case (2 devices or ranks, 85 + 32 rays, the cascade's
+views split too, its key, each package's own ReLU choices) against the
+serial step of the same package, as ``chip_smoke.py`` phase ``mesh``
+holds the port's on the card (worst gradient rel ``MESH_GRAD_RTOL``):
+
+- (i) the JAX package's view split against its serial step, both
+  compiled without excess precision, and the port's (2 gloo ranks on the
+  CPU) against its serial step at each rounding arm: per-tensor rel
+  median, worst and the worst's tensor, and the loss's rel.
+
+    JAX_PLATFORMS=cpu \
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+    python scripts/jax_option_gaps.py --bf16_view_split
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import sys
@@ -138,22 +157,7 @@ def mlp_inputs(view_num: int, n: int = 64, s: int = 9):
         rng.normal(size=(n, s, 4))))
 
 
-@contextlib.contextmanager
-def _flax_rounding():
-    """The port's plain MLP (``ucnerf_torch/models/nerf.py``) rounding each
-    dense layer as flax's ``nn.Dense(dtype=bfloat16)`` does."""
-    import torch.nn.functional as F
-    from ucnerf_torch.models.nerf import BaseAdaptRenderer
-
-    def dense(self, x, layer):
-        r = self._round
-        return r(r(F.linear(x, r(layer.weight))) + r(layer.bias))
-    saved = BaseAdaptRenderer._dense
-    BaseAdaptRenderer._dense = dense
-    try:
-        yield
-    finally:
-        BaseAdaptRenderer._dense = saved
+ARMS = [(f, b) for f in ("kernel", "flax") for b in ("autograd", "xla")]
 
 
 def bf16_step_gaps() -> dict:
@@ -204,15 +208,15 @@ def bf16_step_gaps() -> dict:
     out = dict(mlp_excess_vs_exact=dict(
         out=float(np.abs(o1 - o2).max()), median=float(np.median(rels)),
         worst=max(rels), feats=_rels({"f": f2}, {"f": f1})[0]))
-    for tag, rounding in (("", contextlib.nullcontext), ("_flax",
-                                                        _flax_rounding)):
+    from bf16_rounding import rounding
+    for arm in ARMS:
         nerf, _ = _port(cfg, c["params"])
-        with rounding():
+        with rounding(nerf, *arm):
             o = nerf(torch.from_numpy(pts), torch.from_numpy(dirs),
                      torch.from_numpy(feats))
-        (o * torch.from_numpy(ct)).sum().backward()
+            (o * torch.from_numpy(ct)).sum().backward()
         rels = _rels(port_grads(("nerf", nerf)), g1)
-        out["port_mlp_vs_exact" + tag] = dict(
+        out["port_mlp_vs_exact_" + "_".join(arm)] = dict(
             out=float(np.abs(o.detach().numpy() - o1).max()),
             median=float(np.median(rels)), worst=max(rels))
 
@@ -236,27 +240,101 @@ def bf16_step_gaps() -> dict:
         return [int((x != y).sum()) for x, y in zip(a, b)]
     out["relu_flips"] = dict(level0_vs_default=flips(masks, masks_default),
                              samples=[int(m.size) for m in masks])
-    for tag, rounding in (("", contextlib.nullcontext), ("_flax",
-                                                        _flax_rounding)):
+    for arm in ARMS:
+        tag = "_".join(arm)
         for same in (False, True):
             nerf, mvs = _port(cfg, c["params"])
             own = []
-            with rounding(), relu_choices(masks if same else None,
-                                          record=own):
+            with rounding(nerf, *arm), relu_choices(
+                    masks if same else None, record=own):
                 loss, _ = t_loop.scene_loss(cfg, nerf, mvs, to_device_batch(
                     c["sample"], "cpu"), _draws(cfg, key))
                 loss.backward()
             rels = _rels(port_grads(("nerf", nerf), ("mvs", mvs)),
                          grads["level0"])
-            out["port_step" + tag + ("_jax_relu" if same else "")] = dict(
+            out[f"port_step_{tag}" + ("_jax_relu" if same else "")] = dict(
                 median=float(np.median(rels)), worst=max(rels))
             if not same:
-                out["relu_flips"]["port" + tag] = flips(own, masks)
+                out["relu_flips"]["port_" + tag] = flips(own, masks)
+    return out
+
+
+def bf16_view_split_gaps() -> dict:
+    """(i) of the module's docstring."""
+    import dataclasses
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tests"))
+    import jax_parallel_refs
+    from test_torch_parallel import (RAY_CASES, _argv, _draw_arrays, _rels,
+                                     _spawn, parallel_case)
+    from test_torch_train import JIT_QUICK, _draws, _jcfg, _port
+    from bf16_rounding import rounding
+    from ucnerf_torch.render.serving import to_device_batch as t_device_batch
+    from ucnerf_torch.train import loop as t_loop
+    from ucnerf_torch.utils.checkpoint_io import state_dict_from_jax
+    from ucnerf_tpu.train import loop as j_loop
+    torch.set_num_threads(1)
+    case = parallel_case()
+    flags, seed, _ = RAY_CASES["padded_views"]
+    cfg = case["cfg"].replace(nerf_dtype="bfloat16", **flags)
+    exact = {**JIT_QUICK, **EXACT_BF16}
+
+    def gap(split, serial):
+        rels = _rels(split, serial)
+        return dict(median=float(np.median(list(rels.values()))),
+                    worst=max(rels.values()),
+                    worst_tensor=max(rels, key=rels.get))
+
+    def flat(grads):
+        sd = state_dict_from_jax(grads)
+        return {f"{k}/{n}": np.asarray(v) for k in ("nerf", "mvs")
+                for n, v in sd[k].items()}
+    spec = dict(cfg=dataclasses.asdict(cfg), params=case["jparams"],
+                sample=case["sample"], seed=seed)
+    split_fn, args = jax_parallel_refs.lowered("rays", spec)
+    (_, terms_split), g_split = jax.tree.map(
+        np.asarray, split_fn.compile(exact)(*args))
+    jcfg = _jcfg(cfg)
+    jnerf, jmvs = j_create_models(jcfg)
+    batch = to_device_batch(case["sample"])
+    key = jax.random.PRNGKey(seed)
+    p = jax.tree.map(jnp.asarray, case["jparams"])
+    serial = jax.jit(jax.value_and_grad(lambda q: j_loop.scene_loss(
+        jcfg, jnerf, jmvs, q, batch, key), has_aux=True))
+    (_, terms_serial), g_serial = jax.tree.map(
+        np.asarray, serial.lower(p).compile(exact)(p))
+    out = dict(jax_package=dict(
+        gap(flat(g_split), flat(g_serial)),
+        loss_rel=abs(float(terms_split["loss"])
+                     / float(terms_serial["loss"]) - 1)))
+    draws = _draws(cfg, key)
+    argv = _argv(cfg, parallel_mode="rays", nerf_dtype="bfloat16",
+                 **flags)
+    jobs = [dict(kind="loss", argv=argv, params=case["np_params"],
+                 samples=[case["sample"]], draws=[_draw_arrays(draws)],
+                 rounding=arm) for arm in ARMS]
+    ranks = _spawn((2,), ("data",), jobs)
+    for arm, res in zip(ARMS, ranks):
+        nerf, mvs = _port(cfg, case["params"])
+        with rounding(nerf, *arm):
+            loss, _ = t_loop.scene_loss(cfg, nerf, mvs, t_device_batch(
+                case["sample"], "cpu"), draws)
+            loss.backward()
+        g_s = {f"{name}/{n}": q.grad.numpy()
+               for name, m in (("nerf", nerf), ("mvs", mvs))
+               for n, q in m.named_parameters()}
+        out["port_" + "_".join(arm)] = dict(
+            gap(res["grads"], g_s), loss_rel=abs(float(
+                res["metrics"]["loss"]) / float(loss.detach()) - 1))
     return out
 
 
 def main():
     t0 = time.perf_counter()
+    if "--bf16_view_split" in sys.argv[1:]:
+        print(json.dumps(dict(bf16_view_split_gaps(), jax=jax.__version__,
+                              seconds=time.perf_counter() - t0)))
+        return
     if "--bf16_step" in sys.argv[1:]:
         print(json.dumps(dict(bf16_step_gaps(), jax=jax.__version__,
                               seconds=time.perf_counter() - t0)))

@@ -121,7 +121,7 @@ def _draws(cfg, key):
     return jax_train_draws(key, H=H, W=W, patch_size=cfg.patch_size,
                            patch_num=cfg.patch_num,
                            n_uniform=cfg.n_uniform_rays,
-                           n_rays=cfg.n_train_rays, n_samples=cfg.N_samples)
+                           n_rays=cfg.n_built_rays, n_samples=cfg.N_samples)
 
 
 def _grads(nerf, mvs):

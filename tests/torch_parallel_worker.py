@@ -9,8 +9,10 @@ results (numpy), the other ranks None.  A job is a dict with ``kind``:
 - ``loss``: one multi-rank train step's loss of ``parallel_mode``
   (``argv``), backward and the gradient mean over the ranks; ``samples``
   and ``draws`` hold one numpy sample and one draw tuple per scene slot,
-  and ``relu``, when given, the ReLU choices the plain MLP takes
-  (``relu_choices``).  Result: the metrics and the gradients by
+  ``relu``, when given, the ReLU choices the plain MLP takes
+  (``relu_choices``), and ``rounding``, when given, the (forward,
+  backward) rounding of the bf16 MLP in the step
+  (``bf16_rounding.py``).  Result: the metrics and the gradients by
   state-dict name.
 - ``cascade``: the view-sharded cascade's outputs on ``sample``, over
   the first ``ranks`` ranks.
@@ -56,6 +58,8 @@ from ucnerf_torch.parallel.sharding import (parallel_loss, scene_slot,
 from ucnerf_torch.render.serving import to_device_batch
 from ucnerf_torch.train import __main__ as train_cli
 from ucnerf_torch.train.loop import make_eval_render, run_mvs
+
+from bf16_rounding import KERNEL, rounding
 
 
 class _ReluChoices:
@@ -111,7 +115,8 @@ def _loss(mesh, job):
     slot = scene_slot(cfg, mesh)
     batch = to_device_batch(job["samples"][slot], "cpu")
     draws = TrainDraws(*(torch.from_numpy(d) for d in job["draws"][slot]))
-    with relu_choices(job.get("relu"), mesh.rank, mesh.size):
+    with relu_choices(job.get("relu"), mesh.rank, mesh.size), \
+            rounding(nerf, *job.get("rounding", KERNEL)):
         loss, metrics = parallel_loss(cfg, mesh)(nerf, mvs, batch, draws)
         loss.backward()
     params = [p for m in (nerf, mvs) for p in m.parameters()]

@@ -136,6 +136,16 @@ class Config:
     def n_train_rays(self) -> int:
         return self.batch_size + self.n_depth_rays
 
+    @property
+    def n_built_rays(self) -> int:
+        """The rays a train batch holds and the step renders: ``patch_num
+        // 2`` patches of each half, the uniform and the sparse-depth rays.
+        At an odd ``patch_num`` that is one patch fewer than
+        ``n_train_rays`` counts (the loss still slices ``n_patch_rays`` and
+        ``batch_size`` rows, as the JAX package's does)."""
+        return (2 * (self.patch_num // 2) * self.patch_size ** 2
+                + self.n_uniform_rays + self.n_depth_rays)
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 

@@ -261,7 +261,7 @@ def run(cfg: Config, ns: argparse.Namespace) -> dict:
     W, H = train_ds.img_wh
     draw_shape = dict(H=H, W=W, patch_size=cfg.patch_size,
                       patch_num=cfg.patch_num, n_uniform=cfg.n_uniform_rays,
-                      n_rays=cfg.n_train_rays, n_samples=cfg.N_samples)
+                      n_rays=cfg.n_built_rays, n_samples=cfg.N_samples)
     ckpt_dir = os.path.join(cfg.basedir, cfg.expname, "ckpts")
     writer = (MetricWriter(os.path.join(cfg.basedir, cfg.expname, "tb"),
                            use_wandb=cfg.log) if is_main_rank() else None)
@@ -301,7 +301,7 @@ def run(cfg: Config, ns: argparse.Namespace) -> dict:
                     m = {k: float(v) for k, v in
                          train_step(state, batch, draws).items()}
                 step_ms.append((time.perf_counter() - t0) * 1e3)
-                meter.update(cfg.n_train_rays * n_scenes)
+                meter.update(cfg.n_built_rays * n_scenes)
                 comm = ({} if mesh is None
                         else {"collectives": dict(collectives.STATS)})
                 _emit(step=state.step, epoch=epoch, **m, lr=lr,
@@ -335,7 +335,7 @@ def run(cfg: Config, ns: argparse.Namespace) -> dict:
     median = float(np.median(step_ms)) if step_ms else None
     summary = {"steps": state.step, "epochs": epoch + 1, "wall_s": wall,
                "median_step_ms": median,
-               "rays_per_s": (cfg.n_train_rays * n_scenes / median * 1e3
+               "rays_per_s": (cfg.n_built_rays * n_scenes / median * 1e3
                               if median and not cfg.mvs_only else None),
                "val": val, "params": ns.save_params, "ckpt": ckpt,
                "stopped": stop, **mesh_info}
