@@ -22,7 +22,9 @@ SCARED-layout scan at 1280x1024 with the port's own writers, loads it cold
 and warm through the scene cache, trains 12 steps on it through ``python
 -m ucnerf_torch.train --dataset_name scared``, evaluates the checkpoint
 over its val split on K1, serves one request from it, and decodes the
-committed JPEG fixtures to their recorded digests.  Phase ``preprocess``
+committed JPEG fixtures to their recorded digests, and halves four of
+its frames through ``data/llff.py::minify`` as PNG and as JPEG (the
+port's encoder).  Phase ``preprocess``
 converts seeded DPT-Hybrid and LPIPS weights through ``python -m
 ucnerf_torch.convert_weights``, runs ``python -m ucnerf_torch.preprocess
 dpt`` over that scan in f32 and bf16 and ``seg`` on two of its frames,
@@ -44,8 +46,11 @@ by ``scripts/dpt_probe.py``.
     python3 chip_smoke.py
 
 Phases (one line each): device, build, k1 (K1 vs plain), serving, http,
-render_path, resume, panels, store_vs_host, train, options (four lines),
-scared, preprocess, mesh, then the seconds of each.
+render_path, resume, panels, store_vs_host, train, accounting (the card's
+gather and scatter-add floors, and ``utils/accounting.py``'s MFU, floor
+and bandwidth shares of phase train's step and phase serving's frame),
+options (four lines), scared (with ``minify`` of four of the scan's
+frames as PNG and JPEG), preprocess, mesh, then the seconds of each.
 Any failed check raises, so the script exits non-zero and prints no
 result.  Before the last line it prints the card's ``nvidia-smi`` name and
 power limit and one JSON line with every kernel of the main path (K1's
@@ -77,9 +82,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
-PEAK_BF16 = 989e12          # H100 SXM dense tensor-core FLOP/s
-PEAK_F32 = 67e12            # H100 SXM FP32 FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
 SERVE_ARGS = ["--dataset_name", "synthetic", "--img_wh", "320", "256",
               "--view_num", "7"]
 N_REQUESTS = 3
@@ -162,6 +164,20 @@ SMALL_ARGS = ["--dataset_name", "synthetic", "--view_num", "4", "--N_samples",
 
 # an odd --patch_num: at SMALL_ARGS (card vs CPU) and at the train point
 ODD_PATCH_NUM = (5, 25)
+# phase accounting: the gather / scatter-add floors' rows (the warp's:
+# C f32 channels, random rows of a stage-2 source map of 128x160 pixels)
+# at two counts, their marginal ns per row; 16 channels is the row
+# ``utils/accounting.py`` prices
+FLOOR_CHANNELS = (8, 16, 32)
+FLOOR_ROWS = 4_000_000
+FLOOR_TABLE_ROWS = 128 * 160
+# phase scared's minify: the first frames of the scan, halved, written as
+# PNG and as JPEG; a JPEG frame decoded against the Lanczos twin's pixels
+# may differ by the quality-75 round trip, mean abs levels at most
+MINIFY_FRAMES = 4
+MINIFY_FACTOR = 2
+MINIFY_DIR = OUT_DIR.parent / "minify_scene"
+MINIFY_JPEG_MEAN_ABS = 2.0
 
 
 def check(ok: bool, msg: str):
@@ -199,19 +215,22 @@ def mlp_inputs(n_rays: int, n_samples: int, feat_dim: int, seed: int, dev):
             for a in (pts, dirs, feats)]
 
 
+def peaks() -> tuple:
+    """The card's (bf16 FLOP/s, f32 FLOP/s, HBM bytes/s), from the port's
+    accounting (``ucnerf_torch/utils/accounting.py``)."""
+    from ucnerf_torch.utils import accounting as acc
+    return (acc.PEAK_TFLOPS * 1e12, acc.PEAK_TFLOPS_F32 * 1e12,
+            acc.PEAK_HBM_GBPS * 1e9)
+
+
 def mlp_work(cfg, n_rays: int, n_samples: int, weight_bytes: int):
-    """(FLOPs, bytes) that one MLP call must do / move at these shapes."""
-    v1 = cfg.view_num - 1
-    W = cfg.netwidth
-    macs = ((24 + 4 * v1) * W + 8 * v1 * W      # depth_bias, feats_bias
-            + 63 * W + 4 * W * W + (63 + W) * W  # trunk (skip at layer 5)
-            + W * 4                              # base rgb + alpha heads
-            + W * W                              # feature_linear
-            + 2 * (W + 27) * (W // 2)            # views / view_confi
-            + (W // 2) * 4)                      # adapt rgb + alpha heads
+    """(FLOPs, bytes, multiply-adds per point) that one MLP call must do /
+    move at these shapes, counted by the port's accounting."""
+    from ucnerf_torch.utils import accounting as acc
     P = n_rays * n_samples
-    nbytes = (P * 3 + n_rays * 3 + P * cfg.feat_dim + P * 4) * 4 + weight_bytes
-    return 2 * macs * P, nbytes, macs
+    flops = acc.nerf_mlp_flops(cfg, P)
+    return (flops, acc.nerf_mlp_bytes(cfg, n_rays, n_samples, weight_bytes),
+            flops / (2 * P))
 
 
 # device-time groups by kernel name, first match wins (implicit-GEMM
@@ -316,16 +335,17 @@ def ptxas_by_kernel(text: str) -> dict:
 
 def phase_build():
     """Every native source of the path at once: K1 with nvcc, the JPEG
-    decoder and the COLMAP loader with the host compiler."""
+    decoder and encoder and the COLMAP loader with the host compiler."""
     from concurrent.futures import ThreadPoolExecutor
     from ucnerf_torch.kernels import build
     t0 = time.perf_counter()
-    names = ("fused_mlp", "jpeg_decode", "colmap_fast")
+    names = ("fused_mlp", "jpeg_decode", "jpeg_encode", "colmap_fast")
     with ThreadPoolExecutor(len(names)) as pool:
         res = dict(zip(names, pool.map(build.build, names)))
     log("build", kernel="fused_mlp", seconds=time.perf_counter() - t0,
         nvcc_seconds=res["fused_mlp"]["seconds"],
         cxx_seconds=res["jpeg_decode"]["seconds"],
+        jpeg_encode_cxx_seconds=res["jpeg_encode"]["seconds"],
         colmap_cxx_seconds=res["colmap_fast"]["seconds"],
         ptxas=ptxas_by_kernel(res["fused_mlp"]["ptxas"]))
 
@@ -391,12 +411,13 @@ def phase_k1(cfg, dev):
               + f.packed.biases.numel() * 4 for dt, f in fused.items()}
     flops, nbytes, macs = mlp_work(cfg, cfg.chunk, S, wbytes["bfloat16"])
     flops32, nbytes32, _ = mlp_work(cfg, cfg.chunk, S, wbytes["float32"])
-    bound = {"bf16": max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3,
-             "f32": max(flops32 / PEAK_F32, nbytes32 / PEAK_BYTES) * 1e3}
+    peak_bf16, peak_f32, peak_bytes = peaks()
+    bound = {"bf16": max(flops / peak_bf16, nbytes / peak_bytes) * 1e3,
+             "f32": max(flops32 / peak_f32, nbytes32 / peak_bytes) * 1e3}
     res.update(times, macs_per_point=macs, flops=flops, bytes=nbytes,
                bound_bf16_ms=bound["bf16"], bound_f32_ms=bound["f32"],
-               bound_by_bf16=("operations" if flops / PEAK_BF16
-                              >= nbytes / PEAK_BYTES else "bytes"),
+               bound_by_bf16=("operations" if flops / peak_bf16
+                              >= nbytes / peak_bytes else "bytes"),
                # achieved rate and the share of the bound reached
                bf16_tflops=flops / times["bf16_ms"] / 1e9,
                f32_tflops=flops32 / times["f32_ms"] / 1e9,
@@ -407,6 +428,59 @@ def phase_k1(cfg, dev):
                attrs={dt: kernel_attrs(dt == "bf16", cfg.view_num)
                       for dt in ("bf16", "f32")})
     log("k1", **res)
+    return res
+
+
+def gather_floors(dev) -> dict:
+    """The card's marginal ns per row of a gather ``table[idx]`` and of an
+    ``index_add_`` of the warp's rows (``utils/accounting.py``'s floors):
+    CUDA-event times at FLOOR_ROWS and twice as many random rows, the
+    difference over FLOOR_ROWS, per channel count."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for C in FLOOR_CHANNELS:
+        table = torch.randn(FLOOR_TABLE_ROWS, C, device=dev, generator=gen)
+        acc = torch.zeros_like(table)
+        t = {}
+        for n in (FLOOR_ROWS, 2 * FLOOR_ROWS):
+            idx = torch.randint(0, FLOOR_TABLE_ROWS, (n,), device=dev,
+                                generator=gen)
+            vals = torch.randn(n, C, device=dev, generator=gen)
+            t[n] = (time_ms(lambda: table[idx], iters=10),
+                    time_ms(lambda: acc.index_add_(0, idx, vals), iters=10))
+        (g1, s1), (g2, s2) = t[FLOOR_ROWS], t[2 * FLOOR_ROWS]
+        out[C] = dict(gather_ns_per_row=(g2 - g1) * 1e6 / FLOOR_ROWS,
+                      scatter_ns_per_row=(s2 - s1) * 1e6 / FLOOR_ROWS,
+                      gather_ms=[g1, g2], scatter_ms=[s1, s2])
+    return out
+
+
+def phase_accounting(dev, tr: dict, sv: dict) -> dict:
+    """The card's gather and scatter-add floors (``gather_floors``), then
+    ``utils/accounting.py::perf_accounting`` of phase train's step on
+    default kernels and phase serving's steady frame, at the train point
+    (MFU against the bf16 peak, the floors' and HBM's shares)."""
+    from ucnerf_torch.config import parse_config
+    from ucnerf_torch.utils import accounting as acc
+
+    floors = gather_floors(dev)
+    cfg = parse_config(TRAIN_ARGS)
+    W, H = cfg.img_wh
+    fields = acc.perf_accounting(cfg, H, W, tr["steady_ms_per_step"] / 1e3,
+                                 sv["steady_ms_per_frame"] / 1e3)
+    res = dict(floors=floors, floors_in_module=[acc.GATHER_NS_PER_ROW,
+                                                acc.SCATTER_NS_PER_ROW],
+               train_step_ms=tr["steady_ms_per_step"],
+               render_frame_ms=sv["steady_ms_per_frame"],
+               warp_rows=acc.warp_rows(cfg, H, W),
+               feat_rows_train=acc.feat_rows(cfg, cfg.n_train_rays),
+               feat_rows_frame=acc.feat_rows(cfg, H * W), **fields)
+    check(all(np.isfinite(v["gather_ns_per_row"]) and v[
+        "gather_ns_per_row"] > 0 and v["scatter_ns_per_row"] > 0
+              for v in floors.values())
+          and 0 < fields["train_mfu"] < 1 and 0 < fields["render_mfu"] < 1,
+          f"accounting: {res}")
+    log("accounting", **res)
     return res
 
 
@@ -1683,6 +1757,64 @@ def phase_jpeg() -> dict:
                 decode_ms_1280x1024=ms)
 
 
+def scan_minify(scene: Path) -> dict:
+    """``data/llff.py::minify`` (factor MINIFY_FACTOR) of the scan's first
+    MINIFY_FRAMES frames, as PNG (the frames copied) and as JPEG (the
+    frames written by the port's encoder): each written PNG decodes to the
+    Lanczos twin's pixels of its source bit for bit; each written JPEG is
+    ``encode_jpeg`` of those pixels byte for byte and decodes
+    (``csrc/jpeg_decode.cpp``) to them within the quality-75 round trip
+    (mean abs MINIFY_JPEG_MEAN_ABS levels)."""
+    from ucnerf_torch.data.image_io import read_frame
+    from ucnerf_torch.data.llff import minify
+    from ucnerf_torch.data.resize import pil_lanczos_u8
+    from ucnerf_torch.utils.jpeg import encode_jpeg, write_jpeg
+
+    frames = sorted((scene / "images").glob("*.png"))[:MINIFY_FRAMES]
+    W, H = SCAN_WH
+    size = (round(W / MINIFY_FACTOR), round(H / MINIFY_FACTOR))
+    res = {}
+    try:
+        for ext in (".png", ".jpg"):
+            d = MINIFY_DIR / ext[1:]
+            (d / "images").mkdir(parents=True)
+            for f in frames:
+                dst = d / "images" / (f.stem + ext)
+                if ext == ".png":
+                    shutil.copyfile(f, dst)
+                else:
+                    write_jpeg(str(dst), read_frame(str(f)))
+            t0 = time.perf_counter()
+            [out] = minify(str(d), (MINIFY_FACTOR,))
+            secs = time.perf_counter() - t0
+            errs = []
+            for f in frames:
+                twin = pil_lanczos_u8(read_frame(str(d / "images" /
+                                                     (f.stem + ext))), size)
+                written = Path(out) / (f.stem + ext)
+                got = read_frame(str(written))
+                check(got.shape == twin.shape,
+                      f"minify {written}: {got.shape} vs {twin.shape}")
+                err = np.abs(got.astype(np.int64) - twin)
+                errs.append((float(err.mean()), int(err.max())))
+                if ext == ".png":
+                    check(err.max() == 0, f"minify {written}: PNG pixels "
+                          f"differ from the Lanczos twin's")
+                else:
+                    check(written.read_bytes() == encode_jpeg(twin)
+                          and err.mean() <= MINIFY_JPEG_MEAN_ABS,
+                          f"minify {written}: not encode_jpeg of the twin "
+                          f"or mean abs {err.mean()} levels")
+            res[ext[1:]] = dict(frames=len(frames), size=list(size),
+                                seconds=secs,
+                                ms_per_frame=secs / len(frames) * 1e3,
+                                mean_abs=[e[0] for e in errs],
+                                max_abs=[e[1] for e in errs])
+    finally:
+        shutil.rmtree(MINIFY_DIR, ignore_errors=True)
+    return res
+
+
 def phase_scared(dev, tr: dict) -> dict:
     """Phase scared on a fabricated SCARED-layout scan: (a) the scene
     loaded cold (decode, resize, splat) and warm from the scene cache, bit
@@ -1802,6 +1934,7 @@ def phase_scared(dev, tr: dict) -> dict:
           f"{ {k: v.shape for k, v in frame.items()} }")
 
     jpeg = phase_jpeg()
+    mnf = scan_minify(SCAN_DIR / "scene0")
     colmap_native = native_colmap(SCAN_DIR / "scene0", cold)
     res = dict(load=load, steps=len(steps), step_ms=ms,
                steady_ms_per_step=float(np.median(ms[2:])),
@@ -1814,7 +1947,7 @@ def phase_scared(dev, tr: dict) -> dict:
                k1_launches=eval_launches + serve_launches,
                kernel_vs_plain_val_frame=diff,
                serve_ms_per_frame=serve_summary["ms_per_frame"],
-               serve_launches=serve_launches, jpeg=jpeg,
+               serve_launches=serve_launches, jpeg=jpeg, minify=mnf,
                colmap_native=colmap_native, ckpt=str(ckpt))
     log("scared", **res)
     return res
@@ -1966,16 +2099,17 @@ def phase_preprocess(dev, sd: dict) -> dict:
     x32, _, net_hw = dpt._net_input(img01, dev, torch.float32, 384)
     xs = {"f32": x32, "bf16": x32.to(torch.bfloat16)}
     net = {}
+    peak_bf16, peak_f32, peak_bytes = peaks()
     with torch.no_grad():
         for m in ("f32", "bf16"):
             flops, nbytes = dpt_work(params[m], xs[m])
             ms = time_ms(lambda: dpt.dpt_forward(params[m], xs[m]), iters=10,
                          warmup=2)
-            peak = PEAK_F32 if m == "f32" else PEAK_BF16
-            bound = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+            peak = peak_f32 if m == "f32" else peak_bf16
+            bound = max(flops / peak, nbytes / peak_bytes) * 1e3
             net[m] = dict(ms=ms, flops=flops, bytes=nbytes, bound_ms=bound,
                           bound_by="operations" if flops / peak
-                          >= nbytes / PEAK_BYTES else "bytes",
+                          >= nbytes / peak_bytes else "bytes",
                           tflops=flops / ms / 1e9, bound_share=bound / ms,
                           profile=profile_frame(
                               lambda: dpt.dpt_forward(params[m], xs[m]),
@@ -2840,6 +2974,7 @@ def main():
     hp = timed("http", phase_http, cfg, dev)
     rp = timed("render_path", phase_render_path, cfg)
     tr = timed("train", phase_train, dev)
+    ac = timed("accounting", phase_accounting, dev, tr, sv)
     op = timed("options", phase_options, dev, tr, sv)
     try:
         sd = timed("scared", phase_scared, dev, tr)
@@ -2851,7 +2986,7 @@ def main():
             shutil.rmtree(OUT_DIR / name / "ckpts", ignore_errors=True)
     mh = timed("mesh", phase_mesh, dev, sv, smi)
     record = {"k1": k1, "serving": sv, "http": hp, "render_path": rp,
-              "train": tr, "options": op, "scared": sd, "preprocess": pp,
+              "train": tr, "accounting": ac, "options": op, "scared": sd, "preprocess": pp,
               "mesh": mh, "nvidia_smi": smi,
               "seconds": time.perf_counter() - t_start,
               "phase_seconds": seconds}

@@ -4,6 +4,13 @@ params ``.npz`` that ``ucnerf_torch`` reads (``--ckpt params.npz``).
     JAX_PLATFORMS=cpu python scripts/export_params_npz.py \
         logs/scared/ckpts/step_00005000 params.npz [the run's config flags]
 
+With ``init`` in place of the checkpoint it exports the weights the JAX
+trainer starts from at ``--seed`` (``init_params(cfg, PRNGKey(seed),
+(H, W))``, as ``train.py`` draws them):
+
+    JAX_PLATFORMS=cpu python scripts/export_params_npz.py init \
+        seed7.npz --seed 7 [the run's config flags]
+
 The run's flags (``--preset``, ``--view_num``, ``--netwidth``, ...) shape
 the target tree, which the JAX package's ``init_params`` builds (traced
 only, nothing is drawn); ``ucnerf_tpu.utils.checkpoint_io.load_params``
@@ -33,6 +40,13 @@ from ucnerf_tpu.utils.checkpoint_io import load_params, save_params_npz
 _TRACE_HW = (32, 32)
 
 
+def export_init(out: str, cfg) -> str:
+    """The JAX trainer's initial weights at ``cfg.seed`` -> ``out``."""
+    H, W = cfg.img_wh[1], cfg.img_wh[0]
+    params = init_params(cfg, jax.random.PRNGKey(cfg.seed), (H, W))
+    return save_params_npz(jax.tree.map(np.asarray, params), out)
+
+
 def export(ckpt: str, out: str, cfg) -> str:
     """The ``params`` subtree of the orbax checkpoint ``ckpt`` -> ``out``."""
     shapes = jax.eval_shape(lambda: init_params(
@@ -45,10 +59,12 @@ def export(ckpt: str, out: str, cfg) -> str:
 def main(argv=None) -> str:
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("ckpt", help="orbax checkpoint directory "
-                        "(<run>/ckpts/step_XXXXXXXX)")
+                        "(<run>/ckpts/step_XXXXXXXX), or 'init'")
     parser.add_argument("out", help="the params .npz to write")
     ns, rest = parser.parse_known_args(argv)
-    path = export(ns.ckpt, ns.out, parse_config(rest))
+    cfg = parse_config(rest)
+    path = (export_init(ns.out, cfg) if ns.ckpt == "init"
+            else export(ns.ckpt, ns.out, cfg))
     print(f"wrote {path}")
     return path
 

@@ -51,6 +51,25 @@ XLA's transpose rounds them).
 
     JAX_PLATFORMS=cpu python scripts/jax_option_gaps.py --bf16_step
 
+With ``--bf16_stages`` it splits (g)'s gap by stage, at the same shape,
+weights and key, the MLP at bf16 and everything before it in float32:
+
+- (j) each stage's forward output: per cascade stage the volume features,
+  depth, confidence and depth planes, the stage-3 image features, the
+  samples' depths ``z_vals``, the MLP's inputs ``pts``, ``dirs`` and
+  features ``[P, 97]``; as the rel of (g) three ways: the port against
+  the JAX step at XLA's default compile and at level 0, and the JAX step
+  at level 0 against the default;
+- (k) the port's step fed the JAX step's (level 0) ``pts``, ``dirs``,
+  features and ``z_vals`` in value (the port's own graph carries the
+  gradients), with its own ReLU choices, at each of the four rounding
+  arms of (f)-(h): the 154 gradients' median and worst rel against the
+  JAX step at level 0 and the ReLU choices that differ from that step's
+  (and, beside them, the JAX step's own at level 0 against the
+  default).
+
+    JAX_PLATFORMS=cpu python scripts/jax_option_gaps.py --bf16_stages
+
 With ``--bf16_view_split`` it measures, at the same small shape and bf16
 MLP, the ray-DP view split of ``tests/test_torch_parallel.py``'s
 ``padded_views`` case (2 devices or ranks, 85 + 32 rays, the cascade's
@@ -259,6 +278,147 @@ def bf16_step_gaps() -> dict:
     return out
 
 
+STAGE_KEYS = ("volume_feature", "depth", "photometric_confidence",
+              "depth_values")
+
+
+def _stage_arrays(mvs_out, rays, dirs, feats) -> dict:
+    out = {f"stage{s}/{k}": mvs_out[f"stage{s}"][k] for s in (1, 2, 3)
+           for k in STAGE_KEYS}
+    out.update(img_feats=mvs_out["img_feats"], z_vals=rays[
+        "depth_candidates"], pts=rays["ndc"]["ndc"], dirs=dirs, feats=feats)
+    return out
+
+
+def bf16_stage_gaps() -> dict:
+    """(j) and (k) of the module's docstring."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tests"))
+    import contextlib
+    from unittest import mock
+    import jax_parallel_refs
+    from test_torch_train import SCENE_REFS, JIT_QUICK, _case, _draws, _jcfg, \
+        _port
+    from torch_parallel_worker import relu_choices
+    from ucnerf_torch.render import renderer as t_renderer
+    from ucnerf_torch.render.serving import to_device_batch as t_batch
+    from ucnerf_torch.train import loop as t_loop
+    from ucnerf_torch.utils.checkpoint_io import state_dict_from_jax
+    from ucnerf_tpu.render import renderer as j_renderer
+    from ucnerf_tpu.render.fast_feats import gen_pts_feats_fast
+    from ucnerf_tpu.train import loop as j_loop
+    torch.set_num_threads(1)
+    c = _case()
+    cfg = c["cfg"].replace(**SCENE_REFS["bf16"][0])
+    jcfg = _jcfg(cfg)
+    jnerf, jmvs = j_create_models(jcfg)
+    p = jax.tree.map(jnp.asarray, c["jparams"])
+    batch = j_loop.to_device_batch(c["sample"])
+    key = jax.random.PRNGKey(SCENE_REFS["bf16"][1])
+    level0, default = {**JIT_QUICK, **EXACT_BF16}, EXACT_BF16
+
+    def j_stages(q):
+        imgs, mvs_out, conf, rays = j_loop.scene_inputs(jcfg, jmvs, q, batch,
+                                                        key)
+        cos = jnp.linalg.norm(rays["rays_d"], axis=-1)
+        dirs = j_renderer.gen_dir_feature(batch["w2cs"][0],
+                                          rays["rays_d"] / cos[..., None])
+        ctx = j_renderer.make_feat_ctx(mvs_out, conf, imgs[1:],
+                                       batch["w2cs"][1:],
+                                       batch["intrinsics"][1:])
+        feats = gen_pts_feats_fast(rays, ctx["stage_volumes"],
+                                   ctx["confidence"], ctx["quad_views"],
+                                   ctx["src_w2cs"], ctx["src_intrinsics"],
+                                   ctx["img_hw"])
+        return _stage_arrays(mvs_out, rays, dirs, feats)
+    lowered = jax.jit(j_stages).lower(p)
+    jax_st = {name: {k: np.asarray(v, np.float64) for k, v in
+                     lowered.compile(opts)(p).items()}
+              for name, opts in (("level0", level0), ("default", default))}
+
+    tb = t_batch(c["sample"], "cpu")
+    draws = _draws(cfg, key)
+    nerf, mvs = _port(cfg, c["params"])
+    with torch.no_grad():
+        imgs, mvs_out, conf, rays = t_loop.scene_inputs(cfg, mvs, tb, draws)
+        cos = torch.linalg.norm(rays["rays_d"], dim=-1)
+        dirs = t_renderer.gen_dir_feature(tb["w2cs"][0],
+                                          rays["rays_d"] / cos[..., None])
+        ctx = t_renderer.make_feat_ctx(mvs_out, conf, imgs[1:],
+                                       tb["w2cs"][1:], tb["intrinsics"][1:])
+        feats = t_renderer.gen_pts_feats_fast(
+            rays, ctx["stage_volumes"], ctx["confidence"], ctx["views"],
+            ctx["src_w2cs"], ctx["src_intrinsics"], ctx["img_hw"])
+    port_st = {k: v.double().numpy() for k, v in _stage_arrays(
+        mvs_out, rays, dirs, feats).items()}
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(a).max(),
+                                                np.abs(b).max(), 1e-30))
+    out = {"stages": {k: dict(
+        port_vs_default=rel(port_st[k], jax_st["default"][k]),
+        port_vs_level0=rel(port_st[k], jax_st["level0"][k]),
+        level0_vs_default=rel(jax_st["level0"][k], jax_st["default"][k]),
+        shape=list(port_st[k].shape)) for k in jax_st["level0"]}}
+
+    # (k): the JAX step's MLP inputs in value, the port's graph for the
+    # gradients, the port's own ReLU choices
+    grads = jax.jit(jax.grad(lambda q: j_loop.scene_loss(
+        jcfg, jnerf, jmvs, q, batch, key)[0])).lower(p).compile(level0)(p)
+    sd = state_dict_from_jax(jax.tree.map(np.asarray, grads))
+    want = {f"{k}/{n}": np.asarray(v) for k in ("nerf", "mvs")
+            for n, v in sd[k].items()}
+    masks = [np.asarray(m) for m in jax.jit(jax_parallel_refs.relu_choices(
+        jcfg, jnerf, jmvs)).lower(p, batch, key).compile(level0)(
+            p, batch, key)]
+    fed = {k: torch.from_numpy(jax_st["level0"][k].astype(np.float32))
+           for k in ("pts", "dirs", "feats", "z_vals")}
+
+    def value_of(t, name):
+        return t + (fed[name] - t).detach()
+    build, dirf, featf = (t_loop.build_train_rays,
+                          t_renderer.gen_dir_feature,
+                          t_renderer.gen_pts_feats_fast)
+
+    def build_fed(*a, **kw):
+        r = build(*a, **kw)
+        r["ndc"] = dict(r["ndc"], ndc=value_of(r["ndc"]["ndc"], "pts"))
+        r["depth_candidates"] = value_of(r["depth_candidates"], "z_vals")
+        return r
+    from bf16_rounding import rounding
+    for arm in ARMS:
+        nerf, mvs = _port(cfg, c["params"])
+        own = []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(t_loop, "build_train_rays",
+                                                  build_fed))
+            stack.enter_context(mock.patch.object(
+                t_renderer, "gen_dir_feature",
+                lambda *a: value_of(dirf(*a), "dirs")))
+            stack.enter_context(mock.patch.object(
+                t_renderer, "gen_pts_feats_fast",
+                lambda *a, **kw: value_of(featf(*a, **kw), "feats")))
+            stack.enter_context(rounding(nerf, *arm))
+            stack.enter_context(relu_choices(None, record=own))
+            loss, _ = t_loop.scene_loss(cfg, nerf, mvs, t_batch(
+                c["sample"], "cpu"), draws)
+            loss.backward()
+        got = {f"{k}/{n}": q.grad.numpy() for k, m in (("nerf", nerf),
+                                                       ("mvs", mvs))
+               for n, q in m.named_parameters()}
+        rels = _rels(got, want)
+        out["port_step_fed_jax_mlp_inputs_" + "_".join(arm)] = dict(
+            median=float(np.median(rels)), worst=max(rels),
+            tensors=len(rels),
+            relu_flips=[int((x != y).sum()) for x, y in zip(own, masks)])
+    out["relu_flips_level0_vs_default"] = [
+        int((x != y).sum()) for x, y in zip(masks, [
+            np.asarray(m) for m in jax.jit(jax_parallel_refs.relu_choices(
+                jcfg, jnerf, jmvs)).lower(p, batch, key).compile(default)(
+                    p, batch, key)])]
+    return out
+
+
 def bf16_view_split_gaps() -> dict:
     """(i) of the module's docstring."""
     import dataclasses
@@ -333,6 +493,10 @@ def main():
     t0 = time.perf_counter()
     if "--bf16_view_split" in sys.argv[1:]:
         print(json.dumps(dict(bf16_view_split_gaps(), jax=jax.__version__,
+                              seconds=time.perf_counter() - t0)))
+        return
+    if "--bf16_stages" in sys.argv[1:]:
+        print(json.dumps(dict(bf16_stage_gaps(), jax=jax.__version__,
                               seconds=time.perf_counter() - t0)))
         return
     if "--bf16_step" in sys.argv[1:]:

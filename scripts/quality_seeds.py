@@ -34,6 +34,10 @@ and with both packages' lines, the verdict:
     # the verdict from both
     python scripts/quality_seeds.py --verdict jax_seeds.jsonl \\
         port_seeds.jsonl
+    # the port from the JAX package's initial weights of each seed
+    # (scripts/export_params_npz.py init <dir>/seed<N>.npz --seed N <CUT>)
+    python3 scripts/quality_seeds.py --package port --seeds 7 8 9 \\
+        --init_dir jax_init --extra=--deterministic
 
 The rule (fixed before any chain ran): for each phase and metric, the
 port's mean over its seeds lies inside the band of the JAX package's mean
@@ -77,13 +81,16 @@ def cli(package: str) -> list:
 
 
 def run_phase(package: str, seed: int, phase: str, basedir: str,
-              extra: list) -> dict:
+              extra: list, init_dir: str = None) -> dict:
     epochs, flags, parent = PHASES[phase]
     base = os.path.join(basedir, package, f"seed{seed}")
     argv = [*CUT, "--seed", str(seed), "--num_epochs", str(epochs), *flags,
             "--basedir", base, "--expname", phase]
     if parent is not None:
         argv += ["--ckpt", ckpts(base, parent)[-1], "--ckpt_params_only"]
+    elif init_dir is not None:
+        argv += ["--ckpt", os.path.join(init_dir, f"seed{seed}.npz"),
+                 "--ckpt_params_only"]
     argv += extra
     os.makedirs(os.path.join(base, phase), exist_ok=True)
     t0 = time.perf_counter()
@@ -106,6 +113,7 @@ def run_phase(package: str, seed: int, phase: str, basedir: str,
         device = extra[extra.index("--device") + 1]
     return dict(package=package, device=device, seed=seed, phase=phase,
                 steps=steps, seconds=seconds,
+                init="file" if init_dir is not None else "seed",
                 val={k: val[k] for k in METRICS[phase]})
 
 
@@ -147,6 +155,11 @@ def main(argv=None) -> int:
     parser.add_argument("--basedir", default="chiprun_out/seeds")
     parser.add_argument("--extra", default="",
                         help="flags appended to every trainer call")
+    parser.add_argument("--init_dir", default=None,
+                        help="start each seed's boot phase from "
+                        "<init_dir>/seed<N>.npz (--ckpt_params_only), "
+                        "e.g. the JAX package's initial weights from "
+                        "scripts/export_params_npz.py init")
     parser.add_argument("--verdict", nargs="+", metavar="JSONL",
                         help="files of this script's lines: print the "
                         "verdict over them and exit")
@@ -163,7 +176,8 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         for phase in args.phases:
             line = run_phase(args.package, seed, phase, basedir,
-                             shlex.split(args.extra))
+                             shlex.split(args.extra),
+                             args.init_dir and os.path.abspath(args.init_dir))
             lines.append(line)
             print(json.dumps(line), flush=True)
         for phase in args.phases:   # the hand-offs are done

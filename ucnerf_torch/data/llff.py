@@ -1,5 +1,5 @@
-"""LLFF-style pose handling (numpy only): a copy of
-``ucnerf_tpu.data.llff`` less ``minify`` (preprocessing through PIL).
+"""LLFF-style pose handling and image pyramids (numpy only): a copy of
+``ucnerf_tpu.data.llff``.
 
 - ``average_poses`` / ``center_poses``: recenter all c2w poses by the
   inverse of their average pose, then apply the blender2opencv flip
@@ -9,6 +9,9 @@
 - ``prepare_scene_poses``: scale bounds and translations by 1 / (bounds.min()
   * 0.75), centre, and build the intrinsics at ``img_wh``.
 - ``gen_poses``: COLMAP sparse model -> ``poses_bounds.npy``.
+- ``minify``: ``images_{N}/`` and ``images_{WxH}/`` pyramids, PIL's
+  LANCZOS resize (``data/resize.py::pil_lanczos_u8``) and PIL's PNG and
+  JPEG writers (``utils/png.py``, ``utils/jpeg.py``) without PIL.
 """
 
 from __future__ import annotations
@@ -18,6 +21,10 @@ import os
 import numpy as np
 
 from ucnerf_torch.data.colmap import qvec2rotmat, read_model
+from ucnerf_torch.data.image_io import read_frame
+from ucnerf_torch.data.resize import pil_lanczos_u8
+from ucnerf_torch.utils.jpeg import write_jpeg
+from ucnerf_torch.utils.png import write_png
 
 BLENDER2OPENCV = np.array([[1, 0, 0, 0], [0, -1, 0, 0],
                            [0, 0, -1, 0], [0, 0, 0, 1]], dtype=np.float64)
@@ -153,3 +160,40 @@ def get_nearest_pose_ids(tar_pose, ref_poses, num_select):
     ``data/scared.py:69-106``, method='dist')."""
     dists = np.linalg.norm(tar_pose[:3, 3] - ref_poses[:, :3, 3], axis=-1)
     return np.argsort(dists)[:num_select]
+
+
+_WRITERS = {".png": write_png, ".jpg": write_jpeg, ".jpeg": write_jpeg}
+
+
+def minify(scene_dir, factors=(), resolutions=()):
+    """Write downsampled image pyramids ``images_{N}/`` / ``images_{WxH}/``
+    (the JAX package's ``minify``: each frame of ``images/`` resized as
+    PIL's ``resize(size, LANCZOS)`` and saved in the format its extension
+    names, PNG or JPEG at PIL's defaults).  Frames are read as 8-bit RGB
+    (``data/image_io.py::read_frame``) and written as such; a frame
+    already written is kept.  Returns the output directories."""
+    import glob
+
+    img_dir = os.path.join(scene_dir, "images")
+    paths = sorted(glob.glob(os.path.join(img_dir, "*")))
+    if not paths:
+        return []
+    for p in paths:
+        if os.path.splitext(p)[1].lower() not in _WRITERS:
+            raise ValueError(f"{p}: minify writes PNG and JPEG frames only")
+    h0, w0 = read_frame(paths[0]).shape[:2]
+    targets = ([(f"images_{f}", (round(w0 / f), round(h0 / f)))
+                for f in factors]
+               + [(f"images_{w}x{h}", (w, h)) for (w, h) in resolutions])
+    out_dirs = []
+    for name, (w, h) in targets:
+        out = os.path.join(scene_dir, name)
+        os.makedirs(out, exist_ok=True)
+        for p in paths:
+            dst = os.path.join(out, os.path.basename(p))
+            if os.path.exists(dst):
+                continue
+            _WRITERS[os.path.splitext(p)[1].lower()](
+                dst, pil_lanczos_u8(read_frame(p), (w, h)))
+        out_dirs.append(out)
+    return out_dirs

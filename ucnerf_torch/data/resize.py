@@ -1,5 +1,6 @@
-"""numpy twins of the three resizes the JAX package's scene loaders run
-through PIL and cv2 (``ucnerf_tpu/data/scared.py:51-71``).
+"""numpy twins of the resizes the JAX package runs through PIL and cv2:
+the three of its scene loaders (``ucnerf_tpu/data/scared.py:51-71``) and
+the Lanczos of its image pyramids (``ucnerf_tpu/data/llff.py::minify``).
 
 - ``pil_bilinear_u8``: ``PIL.Image.resize(size, BILINEAR)`` of an 8-bit
   RGB image (Pillow's ``ImagingResample``): separable, the triangle filter
@@ -7,6 +8,8 @@ through PIL and cv2 (``ucnerf_tpu/data/scared.py:51-71``).
   normalised and rounded to 22-bit fixed point, a horizontal pass over the
   rows the vertical pass reads, a uint8 intermediate, clipped after each
   pass.  Bit for bit.
+- ``pil_lanczos_u8``: ``PIL.Image.resize(size, LANCZOS)``, the same passes
+  with the Lanczos filter of support 3.  Bit for bit.
 - ``cv2_nearest_scale``: ``cv2.resize(d, None, fx=f, fy=f,
   interpolation=cv2.INTER_NEAREST)``: ``src = floor(dst / f)``.  Bit for
   bit.
@@ -24,13 +27,35 @@ import numpy as np
 PRECISION_BITS = 32 - 8 - 2      # Pillow's Resample.c
 
 
-def _pil_coeffs(in_size: int, out_size: int):
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """Pillow's ``bilinear_filter``: 1 - |x| inside (-1, 1), else 0."""
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """Pillow's ``lanczos_filter``: sinc(x) sinc(x / 3) on [-3, 3), else
+    0 (the C library's ``sin``, as the C loop evaluates it)."""
+    return np.array([_sinc(v) * _sinc(v / 3.0) if -3.0 <= v < 3.0 else 0.0
+                     for v in np.asarray(x, np.float64).ravel()],
+                    np.float64).reshape(np.shape(x))
+
+
+def _pil_coeffs(in_size: int, out_size: int, filt=_triangle,
+                support: float = 1.0):
     """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
-    bilinear filter over the box (0, in_size): (xmin [out], xmax [out],
-    k [out, ksize] int64 fixed-point weights)."""
+    filter ``filt`` of ``support`` over the box (0, in_size): (xmin [out],
+    xmax [out], k [out, ksize] int64 fixed-point weights)."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size, dtype=np.float64) + 0.5) * scale
     ss = 1.0 / filterscale
@@ -42,8 +67,7 @@ def _pil_coeffs(in_size: int, out_size: int):
     ww = np.zeros(out_size, np.float64)
     for x in range(ksize):
         live = x < xmax
-        w = 1.0 - np.abs(((x + xmin) - center + 0.5) * ss)
-        w = np.where(live & (w > 0.0), w, 0.0)   # the filter is 0 past 1
+        w = np.where(live, filt(((x + xmin) - center + 0.5) * ss), 0.0)
         k[:, x] = w
         ww = ww + w          # summed in x order, as the C loop does
     k = np.where(ww[:, None] != 0.0, k / np.where(ww == 0.0, 1.0, ww)[:, None],
@@ -70,28 +94,44 @@ def _pil_pass(img: np.ndarray, axis: int, xmin, xmax, k) -> np.ndarray:
     return np.moveaxis(_clip8(out), 0, axis)
 
 
-def pil_bilinear_u8(img: np.ndarray, size) -> np.ndarray:
-    """[H, W, C] uint8 -> [h, w, C] uint8 as ``Image.resize((w, h),
-    BILINEAR)`` with ``reducing_gap=None``.  ``size`` is (w, h)."""
+def _pil_resample_u8(img: np.ndarray, size, filt, support: float,
+                     name: str) -> np.ndarray:
+    """Pillow's ``ImagingResample`` of an 8-bit image [H, W, C] to ``size``
+    (w, h): a horizontal pass over the rows the vertical pass reads, a
+    uint8 intermediate, then the vertical pass."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3:
-        raise ValueError(f"pil_bilinear_u8 takes [H, W, C] uint8, got "
+        raise ValueError(f"{name} takes [H, W, C] uint8, got "
                          f"{img.shape} {img.dtype}")
     w, h = int(size[0]), int(size[1])
     H, W = img.shape[:2]
     if (w, h) == (W, H):
         return img.copy()
-    ymin, ymax, ky = _pil_coeffs(H, h)
+    ymin, ymax, ky = _pil_coeffs(H, h, filt, support)
     out = img
     if w != W:
         # the horizontal pass covers only the rows the vertical pass reads
         first, last = int(ymin[0]), int(ymin[-1] + ymax[-1])
-        xmin, xmax, kx = _pil_coeffs(W, w)
+        xmin, xmax, kx = _pil_coeffs(W, w, filt, support)
         out = _pil_pass(img[first:last], 1, xmin, xmax, kx)
         ymin = ymin - first
     if h != H:
         out = _pil_pass(out, 0, ymin, ymax, ky)
     return out
+
+
+def pil_bilinear_u8(img: np.ndarray, size) -> np.ndarray:
+    """[H, W, C] uint8 -> [h, w, C] uint8 as ``Image.resize((w, h),
+    BILINEAR)`` with ``reducing_gap=None``.  ``size`` is (w, h)."""
+    return _pil_resample_u8(img, size, _triangle, 1.0, "pil_bilinear_u8")
+
+
+def pil_lanczos_u8(img: np.ndarray, size) -> np.ndarray:
+    """[H, W, C] uint8 -> [h, w, C] uint8 as ``Image.resize((w, h),
+    LANCZOS)`` with ``reducing_gap=None``: the same fixed-point passes as
+    ``pil_bilinear_u8`` with the Lanczos filter of support 3 (negative
+    lobes; each pass clips to [0, 255]).  ``size`` is (w, h)."""
+    return _pil_resample_u8(img, size, _lanczos, 3.0, "pil_lanczos_u8")
 
 
 def _nearest(d: np.ndarray, h: int, w: int, inv_y: float, inv_x: float):
