@@ -409,15 +409,24 @@ def phase_k1(cfg, dev):
         fused_nerf_mlp.launches = before   # comparison launches do not count
     wbytes = {dt: f.packed.weights.numel() * f.packed.weights.element_size()
               + f.packed.biases.numel() * 4 for dt, f in fused.items()}
+    from ucnerf_torch.utils import accounting as acc
     flops, nbytes, macs = mlp_work(cfg, cfg.chunk, S, wbytes["bfloat16"])
     flops32, nbytes32, _ = mlp_work(cfg, cfg.chunk, S, wbytes["float32"])
     peak_bf16, peak_f32, peak_bytes = peaks()
+    # f32: the least of the FMA route and the 3xTF32 route the kernel takes
     bound = {"bf16": max(flops / peak_bf16, nbytes / peak_bytes) * 1e3,
-             "f32": max(flops32 / peak_f32, nbytes32 / peak_bytes) * 1e3}
+             "f32": max(acc.f32_matmul_seconds(flops32),
+                        nbytes32 / peak_bytes) * 1e3}
     res.update(times, macs_per_point=macs, flops=flops, bytes=nbytes,
+               bytes_f32=nbytes32,
                bound_bf16_ms=bound["bf16"], bound_f32_ms=bound["f32"],
+               bound_f32_fma_ms=flops32 / peak_f32 * 1e3,
+               bound_f32_3xtf32_ms=(3 * flops32
+                                    / (acc.PEAK_TFLOPS_TF32 * 1e12) * 1e3),
                bound_by_bf16=("operations" if flops / peak_bf16
                               >= nbytes / peak_bytes else "bytes"),
+               bound_by_f32=("operations" if acc.f32_matmul_seconds(flops32)
+                             >= nbytes32 / peak_bytes else "bytes"),
                # achieved rate and the share of the bound reached
                bf16_tflops=flops / times["bf16_ms"] / 1e9,
                f32_tflops=flops32 / times["f32_ms"] / 1e9,
@@ -484,12 +493,16 @@ def phase_accounting(dev, tr: dict, sv: dict) -> dict:
     return res
 
 
-def kernel_vs_plain_frame(cfg, params, batch, img_hw, dev) -> tuple:
+def kernel_vs_plain_frame(cfg, params, batch, img_hw, dev,
+                          profile: str = None) -> tuple:
     """One frame rendered with K1 and with the plain MLP (at
     ``cfg.nerf_dtype``) from ONE cascade output, so the diff is the MLP's
     alone (the cascade's cuDNN convolutions need not be bit-reproducible):
-    (diff, K1's rgb [H, W, 3]).  The caller resets K1's launch count
-    after."""
+    (diff, K1's rgb [H, W, 3]).  The diff also holds each render's ms
+    (host clock to the frame on the host, the cascade excluded); with
+    ``profile`` (a file name under OUT_DIR) K1's render runs once more
+    under ``profile_frame``, whose result it holds too.  The caller resets
+    K1's launch count after."""
     from ucnerf_torch.kernels.fused_mlp import FusedNeRFMLP
     from ucnerf_torch.models.factory import create_models
     from ucnerf_torch.render.renderer import render_image_chunked
@@ -497,7 +510,7 @@ def kernel_vs_plain_frame(cfg, params, batch, img_hw, dev) -> tuple:
 
     H, W = img_hw
     nerf, mvs = create_models(cfg, dev, params)
-    got = {}
+    got, ms = {}, {}
     with torch.no_grad():
         src = mvs.features(batch["images"][1:])
         ctx = prepare_view_ctx(
@@ -505,15 +518,25 @@ def kernel_vs_plain_frame(cfg, params, batch, img_hw, dev) -> tuple:
             mvs.from_features(src, a, ai, n, f, p))
         for name, mlp in (("kernel", FusedNeRFMLP(nerf)), ("plain", nerf)):
             fns = view_chunk_fns(cfg, mlp, H, W, ctx)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             got[name] = [t.cpu().numpy() for t in render_image_chunked(
                 *fns, H, W, cfg.chunk, dev)]
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            if profile and name == "kernel":
+                prof = profile_frame(lambda: render_image_chunked(
+                    *fns, H, W, cfg.chunk, dev), name=profile)
     d_rgb = np.abs(got["kernel"][0] - got["plain"][0])
     d_depth = np.abs(got["kernel"][1] - got["plain"][1])
-    return dict(rgb_max_abs=float(d_rgb.max()),
+    diff = dict(rgb_max_abs=float(d_rgb.max()),
                 rgb_mean_abs=float(d_rgb.mean()),
                 depth_max_abs=float(d_depth.max()),
                 depth_mean_rel=float((d_depth / np.abs(
-                    got["plain"][1]).clip(1e-6)).mean())), got["kernel"][0]
+                    got["plain"][1]).clip(1e-6)).mean()),
+                frame_ms=ms["kernel"], plain_frame_ms=ms["plain"])
+    if profile:
+        diff["kernel_profile"] = prof
+    return diff, got["kernel"][0]
 
 
 def phase_serving(cfg, dev):
@@ -573,7 +596,8 @@ def phase_serving(cfg, dev):
     params = serve.load_params(cfg, dev)
     diffs = {dt: kernel_vs_plain_frame(cfg.replace(nerf_dtype=dt), params,
                                        renderer.frame_batch(c2w), (H, W),
-                                       dev)[0]
+                                       dev, profile="f32_frame_profile.txt"
+                                       if dt == "float32" else None)[0]
              for dt in ("bfloat16", "float32")}
     fused_nerf_mlp.launches = launches   # comparison launches do not count
     check(diffs["float32"]["rgb_max_abs"] <= 1e-3
@@ -586,6 +610,11 @@ def phase_serving(cfg, dev):
                launches_per_frame=launches // (N_REQUESTS + 1),
                serve_ms_per_frame=summary["ms_per_frame"],
                serve_wall_s=wall, steady_ms_per_frame=ms_frame,
+               # the --nerf_dtype float32 frame: its render (cascade
+               # excluded) and K1's device time in it (profiled again)
+               f32_frame_ms=diffs["float32"]["frame_ms"],
+               f32_k1_device_ms=diffs["float32"]["kernel_profile"][
+                   "by_kind_ms"]["K1"],
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                kernel_vs_plain_frame=diffs, frame_profile=profile)
     log("serving", **res)

@@ -128,3 +128,18 @@ def test_k1_tile_flops_and_bounds():
     nbytes = t_acc.nerf_mlp_bytes(cfg, 1024, 90, 300_000)
     assert nbytes == 4.0 * (92160 * (3 + 97 + 4) + 1024 * 3) + 300_000
     assert np.isfinite(nbytes / (t_acc.PEAK_HBM_GBPS * 1e9))
+
+
+def test_k1_f32_bound_is_the_least_route(monkeypatch):
+    """K1's f32 bound at the phase-k1 tile is the least of the FMA route
+    (0.4053 ms at 67 TFLOP/s) and the 3xTF32 route (3 x 27.16 GFLOP at
+    494.7 TFLOP/s: 0.1647 ms), so the tensor-core route's; at a TF32 rate
+    under 3 x 67 TFLOP/s it would be the FMA route's."""
+    cfg = Config(**CONFIGS["scared"][0])
+    fl = t_acc.nerf_mlp_flops(cfg, 1024 * 90)
+    fma = fl / (t_acc.PEAK_TFLOPS_F32 * 1e12)
+    tf32 = 3 * fl / (t_acc.PEAK_TFLOPS_TF32 * 1e12)
+    assert round(fma * 1e3, 4) == 0.4053 and round(tf32 * 1e3, 4) == 0.1647
+    assert t_acc.f32_matmul_seconds(fl) == tf32
+    monkeypatch.setattr(t_acc, "PEAK_TFLOPS_TF32", 150.0)
+    assert t_acc.f32_matmul_seconds(fl) == fma

@@ -101,15 +101,18 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("view_num,n_rays,n_samples",
                          [(7, 1024, 90), (7, 37, 90), (4, 33, 12),
-                          (7, 1, 12), (7, 64, 12), (7, 43, 3)])
+                          (7, 1, 12), (7, 64, 12), (7, 43, 3),
+                          (17, 33, 12), (2, 29, 7)])
 def test_fused_mlp_matches_plain(card, view_num, n_rays, n_samples):
     """f32: max abs err <= 1e-4 against the plain f32 MLP.  bf16: the JAX
     package's bounds against that f32 truth (mean error within 2x the plain
     bf16 version's + 5e-3, 99th percentile <= 0.25), and a mean abs diff to
     the plain bf16 version of 1e-4 (both round at the same points).  Ragged
-    point counts exercise the masked last tile; at the bf16 kernel's
-    128-point blocks: 12 points (less than a block), 768 (six blocks) and
-    129 (one point past a block)."""
+    point counts exercise the masked last tile; at the 128-point blocks of
+    V <= 7: 12 points (less than a block), 768 (six blocks) and 129 (one
+    point past a block).  V=17, the packing's limit, gives the f32 kernel
+    80-point blocks (five warps fit its shared memory); V=2 has one k-tile
+    of image features."""
     mlps, cfg = _mlps(view_num, card)
     x = _inputs(n_rays, n_samples, cfg.feat_dim, card, seed=n_rays)
     before = fused_nerf_mlp.launches

@@ -15,13 +15,14 @@ from ucnerf_tpu.pallas.mlp_kernel import _LAYER_NAMES, pack_mlp_weights
 from ucnerf_tpu.utils.checkpoint_io import export_nerf_state_dict
 
 from ucnerf_torch.config import Config
-from ucnerf_torch.kernels.fused_mlp import (BF16_STEPS, LAYER_NAMES,
+from ucnerf_torch.kernels.fused_mlp import (LAYER_NAMES, WEIGHT_STEPS,
                                             FusedNeRFMLP, fused_nerf_mlp,
                                             layer_blocks,
                                             pack_mlp_weights as t_pack,
                                             render_mlp,
                                             shuffle_b_fragments as t_shuffle,
-                                            unshuffle_b_fragments)
+                                            unshuffle_b_fragments,
+                                            unshuffle_tf32_fragments)
 from ucnerf_torch.models.factory import create_models, init_params
 from ucnerf_torch.utils.checkpoint_io import (jax_params_from_state_dict,
                                               nerf_state_dict_from_jax)
@@ -92,11 +93,12 @@ def test_state_dict_from_jax_matches_export(case):
 
 
 def test_packing_follows_pallas_order(case):
-    """Layer order, kernels and biases equal ``pack_mlp_weights``; the f32
-    packed buffer holds each block zero-padded, row-major, where the table
-    says.  The bf16 pack holds the ``BF16_STEPS`` blocks in mma.sync
-    B-fragment order: each unshuffles to its zero-padded [K, N] block, whose
-    parts give back their layers column for column."""
+    """Layer order, kernels and biases equal ``pack_mlp_weights``.  Both
+    packs hold the ``WEIGHT_STEPS`` blocks where the table says: bf16 in
+    mma.sync m16n8k16 B-fragment order, f32 split into tf32 big and small
+    in m16n8k8 B-fragment order.  Each unpacks to its zero-padded [K, N]
+    block (f32: big + small), whose parts give back their layers bit for
+    bit, column for column (bf16: the layers rounded to bf16)."""
     nerf = _port_mlp(case)
     assert LAYER_NAMES == _LAYER_NAMES
     blocks = layer_blocks(nerf)
@@ -105,49 +107,43 @@ def test_packing_follows_pallas_order(case):
         assert name == _LAYER_NAMES[i]
         np.testing.assert_array_equal(w.numpy(), case["packed"][i], name)
         np.testing.assert_array_equal(b.numpy(), case["packed"][n + i], name)
-    pk = t_pack(nerf)
-    table = np.asarray(list(pk.table)).reshape(n, 4)
-    for (name, w, b), (K, N, wo, bo) in zip(blocks, table):
-        assert K % 16 == 0 and N % 16 == 0
-        blk = pk.weights[wo:wo + K * N].reshape(K, N).numpy()
-        k, m = w.shape
-        if name == "pts_linears_5":   # [pe 63 | zero row | h 128]
-            want = np.concatenate([w[:63], np.zeros((1, m)), w[63:]])
-        else:
-            want = w.numpy()
-        np.testing.assert_array_equal(blk[:want.shape[0], :m], want, name)
-        assert not blk[want.shape[0]:].any() and not blk[:, m:].any()
-        np.testing.assert_array_equal(pk.biases[bo:bo + m].numpy(), b)
-    assert not pk.use_bf16 and table[-1, 2] + table[-1, 0] * table[-1, 1] \
-        == pk.weights.numel()
-
-    pk16 = t_pack(_port_mlp(case, "bfloat16"))
-    assert pk16.use_bf16 and pk16.weights.dtype == torch.bfloat16
-    t16 = np.asarray(list(pk16.table)).reshape(len(BF16_STEPS), 4)
     by_name = {name: (w, b) for name, w, b in blocks}
-    assert sorted(nm for parts in BF16_STEPS for nm, _ in parts) \
+    assert sorted(nm for parts in WEIGHT_STEPS for nm, _ in parts) \
         == sorted(_LAYER_NAMES)
-    for parts, (K, N, wo, bo) in zip(BF16_STEPS, t16):
-        assert K % 16 == 0 and N % 16 == 0 and wo % 8 == 0
-        blk = unshuffle_b_fragments(pk16.weights[wo:wo + K * N], K,
-                                    N).float().numpy()
-        bias = pk16.biases[bo:bo + N].numpy()
-        left = np.ones((K, N), bool)
-        col = 0
-        for name, row0 in parts:
-            w, b = by_name[name]
-            w = w.to(torch.bfloat16).float().numpy()
-            if name == "pts_linears_5":   # [pe 63 | zero row | h 128]
-                w = np.concatenate([w[:63], np.zeros((1, w.shape[1])),
-                                    w[63:]])
-            k, m = w.shape
-            np.testing.assert_array_equal(
-                blk[row0:row0 + k, col:col + m], w, name)
-            np.testing.assert_array_equal(bias[col:col + m], b.numpy())
-            left[row0:row0 + k, col:col + m] = False
-            col += m
-        assert not blk[left].any() and not bias[col:].any()
-    assert t16[-1, 2] + t16[-1, 0] * t16[-1, 1] == pk16.weights.numel()
+    for dtype, mult in (("float32", 8), ("bfloat16", 16)):
+        pk = t_pack(_port_mlp(case, dtype))
+        bf16 = dtype == "bfloat16"
+        assert pk.use_bf16 == bf16 and pk.weights.dtype == getattr(torch,
+                                                                   dtype)
+        table = np.asarray(list(pk.table)).reshape(len(WEIGHT_STEPS), 4)
+        for parts, (K, N, wo, bo) in zip(WEIGHT_STEPS, table):
+            assert K % mult == 0 and N % mult == 0 and wo % 8 == 0
+            if bf16:
+                size = K * N
+                blk = unshuffle_b_fragments(pk.weights[wo:wo + size], K,
+                                            N).float().numpy()
+            else:
+                size = 2 * K * N
+                big, small = unshuffle_tf32_fragments(
+                    pk.weights[wo:wo + size], K, N)
+                blk = (big + small).numpy()
+            bias = pk.biases[bo:bo + N].numpy()
+            left = np.ones((K, N), bool)
+            col = 0
+            for name, row0 in parts:
+                w, b = by_name[name]
+                w = (w.to(torch.bfloat16).float() if bf16 else w).numpy()
+                if name == "pts_linears_5":   # [pe 63 | zero row | h 128]
+                    w = np.concatenate([w[:63], np.zeros((1, w.shape[1])),
+                                        w[63:]])
+                k, m = w.shape
+                np.testing.assert_array_equal(
+                    blk[row0:row0 + k, col:col + m], w, name)
+                np.testing.assert_array_equal(bias[col:col + m], b.numpy())
+                left[row0:row0 + k, col:col + m] = False
+                col += m
+            assert not blk[left].any() and not bias[col:].any()
+        assert table[-1, 2] + size == pk.weights.numel()
 
 
 def test_b_fragment_order():

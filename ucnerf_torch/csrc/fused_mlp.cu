@@ -13,8 +13,10 @@
 //
 // What bounds it: the arithmetic.  At V=7 a point costs 147,328 MACs against
 // 408 input bytes (about 720 FLOP per byte, over the card's ~295 bf16 FLOP per
-// byte of device memory), so the tensor cores are the limit in bf16 and the
-// FP32 pipes in f32.
+// byte of device memory), so the tensor cores are the limit: bf16 at its
+// rate, f32 as three TF32 products per product (faster than the FP32 pipes:
+// 3 x 27.16 GFLOP at 494.7 TFLOP/s is 0.165 ms a 92,160-point tile, against
+// 0.405 ms on FMA at 67).
 //
 // bf16 (the main path), what the design does about it:
 // - A warp owns 16 points for the whole chain and runs every layer on the
@@ -64,9 +66,36 @@
 // producer warp, and clusters that multicast one weight copy to several
 // SMs.
 //
-// f32 (parity only, off the main path): PR 1's design.  FMA on 4x4 register
-// tiles, 32-point tiles whose activations live in shared memory, weights
-// streamed through shared memory one layer at a time with a blocking copy.
+// f32 (--nerf_dtype float32), the same structure on m16n8k8 TF32:
+// - 3xTF32: each product is a_small b_big + a_big b_small + a_big b_big,
+//   big = x rounded to tf32 (11 significant bits), small = x - big (exact
+//   in f32; the tensor core reads its top 11 bits).  One pass of TF32 does
+//   not keep f32's 1e-4.  The three products of a k-tile go into a fresh
+//   accumulator that one rounded f32 add then adds to the layer's, which
+//   starts at the bias: the tensor core truncates as it accumulates.
+// - Activations stay in registers: for m16n8k8 the accumulator of n-tile j
+//   holds columns 8 j + 2 tq, 8 j + 2 tq + 1 and the A fragment of k-tile j
+//   wants columns 8 j + tq, 8 j + tq + 4, so the packing permutes each
+//   block's rows inside every group of 8 (logical row l < 4 is input 2 l,
+//   l >= 4 input 2 (l - 4) + 1) and the accumulator is the next layer's A
+//   fragment, register for register.  Staged inputs load as float2 pairs.
+// - The weights are split into big and small on the host (twice the bytes:
+//   one 16-byte load gives a lane both parts of one n-tile's B fragment),
+//   so no lane spends ALU on B; the activations split once per k-tile.  The
+//   12 blocks stream through a four-stage ring of 16 KB k-slabs (16 rows of
+//   an N=128 block, a whole head block), thread 0 copying two slabs ahead
+//   on the same full / empty mbarriers; all biases stay in shared memory.
+//   Blocks pad to multiples of 8, so each merged head block is one n-tile.
+// - Registers: two 16 x 128 f32 sets a lane (64 each: the layer's input
+//   and its accumulator); depth_bias lives in shared memory as each lane's
+//   own accumulator quads (8 KB a warp), read in the trunk's epilogues.
+// - Shared memory: 64 KB ring, 6 KB biases, and per warp 16 x F feats, pts,
+//   dirs, a 16 x 72 f32 PE buffer and depth_bias: 226,944 B at V=7 with 8
+//   warps (128 points a block); from V=8 fewer warps fit (5 at V=17).
+// What is left: the B fragments of both parts are read from shared memory
+// by every warp, 255 registers with spills, and only 8 warps an SM to hide
+// the loads' and the mma chains' latency.  wgmma (B from shared memory, A
+// and the accumulator already in its register layout) is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,23 +109,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPePts = 63;
-constexpr int kPeDirs = 27;
-
-// positional-encoding entry j of (x0, x1, x2): [x | sin(x 2^k) | cos(x 2^k)],
-// frequency-major inside each block, zero past the last entry; x * 2^k is
-// exact in f32
-__device__ __forceinline__ float pe_val(float x0, float x1, float x2, int j,
-                                        int L) {
-  if (j >= 3 + 6 * L) return 0.0f;
-  if (j < 3) return j == 0 ? x0 : (j == 1 ? x1 : x2);
-  int t = j - 3;
-  const bool is_cos = t >= 3 * L;
-  if (is_cos) t -= 3 * L;
-  const int c = t % 3;
-  const float a = (c == 0 ? x0 : (c == 1 ? x1 : x2)) * (float)(1 << (t / 3));
-  return is_cos ? cosf(a) : sinf(a);
-}
 
 // ================================================================ bf16 path
 
@@ -107,7 +119,7 @@ constexpr int kBarBytes = 128;                      // the ring's mbarriers
 constexpr int kLdPePts = 64 + 8;                    // staged row strides,
 constexpr int kLdPeDirs = 32 + 8;                   // bf16 elements
 
-// weight blocks in ring order (kernels/fused_mlp.py::BF16_STEPS)
+// weight blocks in ring order (kernels/fused_mlp.py::WEIGHT_STEPS)
 enum {
   S_DB = 0, S_P0, S_P1, S_P2, S_P3, S_P4, S_P5, S_HEAD, S_FB, S_FEAT,
   S_VIEWS, S_OUT, kNumSteps
@@ -387,8 +399,10 @@ __device__ __forceinline__ void ring_done(Ring& r, int lane) {
 // Start copying one warp's inputs for points [p0, p0 + 16) into its stage,
 // zero past the last point: feats rows as 16-byte pieces (the wrapper
 // hands in a 16-byte aligned feats; p0 F floats is a multiple of 16 bytes),
-// pts and dirs as 4-byte pieces.  Commits one copy group.
-__device__ void prefetch_rows(const Bf16Params& p, const Stage& st,
+// pts and dirs as 4-byte pieces.  Commits one copy group.  (Either mode's
+// parameters and stage.)
+template <class ParamsT, class StageT>
+__device__ void prefetch_rows(const ParamsT& p, const StageT& st,
                               unsigned char* base, int p0, int lane) {
   const long long total = (long long)p.P * p.F, first = (long long)p0 * p.F;
   for (int i = lane; i < 4 * p.F; i += 32) {
@@ -614,211 +628,466 @@ cudaError_t launch_bf16(Bf16Params p, cudaStream_t stream) {
 
 namespace f32 {
 
-constexpr int kTile = 32;
-constexpr int kPad = 8;                 // smem row padding, elements
-constexpr int kWidth = 128;             // trunk width
-constexpr int kPePtsPad = 64, kPeDirsPad = 32;
-constexpr int kLdX = kPePtsPad + kWidth + kPad;      // [pe_pts | h]
-constexpr int kLdY = kWidth + kPad;
-constexpr int kLdZ = kWidth + kPeDirsPad + kPad;     // [feature | pe_dirs]
-constexpr int kMaxK = kPePtsPad + kWidth;            // pts_linears_5
-
-// layer order of ucnerf_tpu/pallas/mlp_kernel.py::_LAYER_NAMES
-enum {
-  L_DB = 0, L_FB, L_P0, L_P1, L_P2, L_P3, L_P4, L_P5, L_CRGB, L_A1, L_FEAT,
-  L_V0, L_RGB, L_VC0, L_AL, kNumLayers
-};
+constexpr int kMaxWarps = 8;
+constexpr int kSlabBytes = 16384;   // a ring stage: 16 rows x 128 x 2 f32
+constexpr int kStages = 4;
+constexpr int kLead = 2;            // slabs the producer copies ahead
+constexpr int kMaxSlabs = 96;       // slabs per tile (82 at view_num 17)
+constexpr int kBiasBytes = 6144;    // every block's bias, resident
+constexpr int kLdPts = 64 + 8;      // staged PE row strides, floats
+constexpr int kLdDirs = 32 + 8;
+constexpr int kSmemLimit = 232448;
+constexpr int kBarOff = kStages * kSlabBytes;
+constexpr int kBiasOff = kBarOff + 128;
+constexpr int kFixedBytes = kBiasOff + kBiasBytes;
+// each block's fan-in in k-tiles of 8 and its n-tiles of 8 (0: set by
+// view_num), as kernels/fused_mlp.py::WEIGHT_STEPS packs them
+constexpr int kStepKt[kNumSteps] = {0, 8, 16, 16, 16, 16, 24, 16, 0, 16, 20,
+                                    16};
+constexpr int kStepNt[kNumSteps] = {16, 16, 16, 16, 16, 16, 16, 1, 16, 16, 16,
+                                    1};
 
 struct Params {
   const float* pts;     // [P, 3]
   const float* dirs;    // [P / S, 3]
   const float* feats;   // [P, F]
-  const float* w;       // packed [K_i, N_i] blocks, row-major
-  const float* b;       // packed [N_i] blocks
+  const float* w;       // packed blocks, tf32 big and small B fragments
+  const float* b;       // packed [N_i] biases
   float* out;           // [P, 4]
-  int P, S, F, v1;
-  int k[kNumLayers], n[kNumLayers], w_off[kNumLayers], b_off[kNumLayers];
+  int P, S, F, v1, tiles, nbias, nslabs;
+  int k[kNumSteps], n[kNumSteps], w_off[kNumSteps], b_off[kNumSteps];
+  int slab_off[kMaxSlabs], slab_bytes[kMaxSlabs];   // one tile's slabs
 };
 
-constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
-
-// Shared-memory carve-up, in bytes.
-struct Smem {
-  static constexpr size_t x = 0;
-  static constexpr size_t y = x + align128(sizeof(float) * kTile * kLdX);
-  static constexpr size_t db = y + align128(sizeof(float) * kTile * kLdY);
-  static constexpr size_t fb = db + align128(sizeof(float) * kTile * kLdY);
-  static constexpr size_t z = fb + align128(sizeof(float) * kTile * kLdY);
-  static constexpr size_t w = z + align128(sizeof(float) * kTile * kLdZ);
-  static constexpr size_t base =
-      w + align128(sizeof(float) * kMaxK * (kWidth + kPad));
-  static constexpr size_t adapt = base + align128(sizeof(float) * kTile * 4);
-  static constexpr size_t u = adapt + align128(sizeof(float) * kTile * 4);
-  static constexpr size_t total = u + align128(sizeof(float) * kTile);
-};
-
-// Copy one layer's [K, N] weight block to shared memory (row stride ldw).
-__device__ void load_weights(float* ws, int ldw, const float* wg, int K,
-                             int N) {
-  const int vpr = N / 4;
-  const int total = K * vpr;
-  for (int i = threadIdx.x; i < total; i += kThreads) {
-    const int k = i / vpr, v = i % vpr;
-    reinterpret_cast<float4*>(ws + k * ldw)[v] =
-        __ldg(reinterpret_cast<const float4*>(wg + (size_t)k * N) + v);
+// A warp's staged inputs: 16 feats, pts and dirs rows (copied ahead with
+// cp.async), one f32 buffer that holds PE(pts) for the trunk, then
+// PE(dirs) for the views layer (row strides 8 mod 32 floats: the
+// A-fragment float2 loads are free of bank conflicts), and depth_bias as
+// each lane's 16 accumulator quads.
+struct Stage {
+  size_t feats, pts, dirs, pe, db, bytes;
+  __host__ __device__ explicit Stage(int F) {
+    feats = 0;
+    pts = feats + sizeof(float) * 16 * (size_t)F;
+    dirs = pts + sizeof(float) * 16 * 3;
+    pe = dirs + sizeof(float) * 16 * 3;
+    db = pe + sizeof(float) * 16 * kLdPts;
+    bytes = db + sizeof(float4) * 16 * 32;
   }
+};
+
+// warps a block can hold at this feats width (8 up to view_num 7)
+int warps_for(int F) {
+  return std::min(kMaxWarps,
+                  (kSmemLimit - kFixedBytes) / (int)Stage(F).bytes);
+}
+size_t smem_for(int F) {
+  return kFixedBytes + warps_for(F) * Stage(F).bytes;
 }
 
-// out[kTile, N] = A[kTile, K] @ W[K, N]; epi(row, col, sum) writes it.
-// Starts with a barrier, so the caller's previous writes are visible.
-template <class Epi>
-__device__ void dense(const float* A, int lda, const Params& p, int layer,
-                      float* ws, Epi epi) {
-  const int K = p.k[layer], N = p.n[layer], ldw = N + kPad;
-  __syncthreads();
-  load_weights(ws, ldw, p.w + p.w_off[layer], K, N);
-  __syncthreads();
-  const int nq = N / 4, tiles = (kTile / 4) * nq;
-  for (int t = threadIdx.x; t < tiles; t += kThreads) {
-    const int r0 = (t / nq) * 4, c0 = (t % nq) * 4;
-    float acc[4][4] = {};
-    for (int k = 0; k < K; ++k) {
-      const float4 bv = *reinterpret_cast<const float4*>(ws + k * ldw + c0);
+// tf32(x) rounded to nearest, ties away: half a tf32 ulp added to the
+// bits, the low 13 mantissa bits cleared, as kernels/fused_mlp.py's
+// split_tf32 splits the weights.  For finite x this is cvt.rna.tf32.f32,
+// which compiles with extra instructions for NaN and infinity (2-4% of
+// the kernel's time on the card: scripts/k1_f32_variants.py).
+__device__ __forceinline__ uint32_t tf32_big(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = big + small exactly (x - big is exact in f32); the tensor core reads
+// small's top 11 significant bits
+__device__ __forceinline__ uint32_t tf32_small(float x, uint32_t big) {
+  return __float_as_uint(x - __uint_as_float(big));
+}
+
+// d = a b (a zero accumulator)
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += a b at f32 accuracy (3xTF32): a_small b_big + a_big b_small, then
+// a_big b_big, summed in a fresh accumulator that one rounded f32 add per
+// element then adds to acc.  (The tensor core truncates as it adds into its
+// accumulator: run over a layer's 48-72 products into acc itself, that
+// bias grows with the running sum, to 4.4e-4 at the output on the card,
+// scripts/k1_f32_variants.py.)
+// b = (b0 big, b1 big, b0 small, b1 small): rows tq and tq + 4, column g.
+__device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], float4 b) {
+  const uint32_t bb0 = __float_as_uint(b.x), bb1 = __float_as_uint(b.y);
+  float d[4];
+  mma_tf32_zero(d, as, bb0, bb1);
+  mma_tf32(d, ab, __float_as_uint(b.z), __float_as_uint(b.w));
+  mma_tf32(d, ab, bb0, bb1);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = A[(r0 + i) * lda + k];
-        acc[i][0] = fmaf(a, bv.x, acc[i][0]);
-        acc[i][1] = fmaf(a, bv.y, acc[i][1]);
-        acc[i][2] = fmaf(a, bv.z, acc[i][2]);
-        acc[i][3] = fmaf(a, bv.w, acc[i][3]);
-      }
+  for (int i = 0; i < 4; ++i) acc[i] += d[i];
+}
+
+// acc[16, 8 NT] += x[16, 8] @ one k-tile of a block; x in A-fragment order
+// (a0 = row g, a1 = row g + 8 at logical k tq; a2, a3 at tq + 4), split
+// here; wk points at the k-tile: per n-tile 32 lanes x float4
+template <int NT>
+__device__ __forceinline__ void mma_ktile(float (&acc)[NT][4],
+                                          const float (&x)[4],
+                                          const float* wk, int lane) {
+  uint32_t ab[4], as[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ab[i] = tf32_big(x[i]);
+    as[i] = tf32_small(x[i], ab[i]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    mma3(acc[nt], ab, as, reinterpret_cast<const float4*>(wk)[nt * 32 + lane]);
+}
+
+// A fragments.  The packing permutes each block's rows inside every group
+// of 8: logical k-row l < 4 holds input 2 l, l >= 4 input 2 (l - 4) + 1.
+// So a lane's A values of k-tile j are inputs 8 j + 2 tq and 8 j + 2 tq + 1
+// of rows g and g + 8: one float2 from a staged row, and in registers the
+// accumulator of n-tile j as it stands (c0 c1 row g, c2 c3 row g + 8).
+__device__ __forceinline__ void frag_regs(float (&x)[4], const float (&h)[4]) {
+  x[0] = h[0]; x[1] = h[2]; x[2] = h[1]; x[3] = h[3];
+}
+__device__ __forceinline__ void frag_smem(float (&x)[4], const float* X,
+                                          int ld, int kt, int lane) {
+  const float* r0 = X + (lane / 4) * ld + kt * 8 + 2 * (lane % 4);
+  const float2 u = *reinterpret_cast<const float2*>(r0);
+  const float2 v = *reinterpret_cast<const float2*>(r0 + 8 * ld);
+  x[0] = u.x; x[1] = v.x; x[2] = u.y; x[3] = v.y;
+}
+// columns [c0, c0 + ncols) of the warp's 16 staged feats rows (odd row
+// stride F: scalar loads), zero past ncols
+__device__ __forceinline__ void frag_feats(float (&x)[4], const float* xf,
+                                           int F, int c0, int ncols, int kt,
+                                           int lane) {
+  const int g = lane / 4, c = kt * 8 + 2 * (lane % 4);
+  auto at = [&](int r, int cc) {
+    return cc < ncols ? xf[r * F + c0 + cc] : 0.0f;
+  };
+  x[0] = at(g, c); x[1] = at(g + 8, c); x[2] = at(g, c + 1);
+  x[3] = at(g + 8, c + 1);
+}
+
+// The weight ring: kStages stages of one slab (up to 16 KB of one block's
+// k-tiles, both parts), each with a `full` mbarrier (the producer's
+// expect_tx plus the bulk copy's bytes) and an `empty` one (one arrive per
+// warp).  Slabs are numbered b = 0, 1, ... over all of this CTA's tiles;
+// slab b uses stage b % kStages.  Thread 0 produces: at slab b it copies
+// slab b + kLead into the stage that slab b + kLead - kStages used, once
+// every warp has left that slab, so the warps may drift one slab apart
+// without stalling it.
+struct Ring {
+  unsigned char* stage;
+  uint64_t* bar;          // full[kStages], empty[kStages]
+  int b, total;
+};
+
+__device__ void ring_issue(Ring& r, const Params& p, int nb) {
+  const int st = nb % kStages, use = nb / kStages, s = nb % p.nslabs;
+  if (use > 0) mbar_wait(r.bar + kStages + st, (use - 1) & 1);
+  mbar_expect_tx(r.bar + st, p.slab_bytes[s]);
+  bulk_copy(r.stage + st * kSlabBytes, p.w + p.slab_off[s], p.slab_bytes[s],
+            r.bar + st);
+}
+
+__device__ __forceinline__ const float* ring_next(Ring& r, const Params& p) {
+  const int b = r.b++;
+  if (threadIdx.x == 0 && b + kLead < r.total) ring_issue(r, p, b + kLead);
+  __syncwarp();
+  mbar_wait(r.bar + b % kStages, (b / kStages) & 1);
+  return reinterpret_cast<const float*>(r.stage + (b % kStages) * kSlabBytes);
+}
+
+__device__ __forceinline__ void ring_done(Ring& r, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(r.bar + kStages + (r.b - 1) % kStages);
+}
+
+// acc += A @ one block of KT k-tiles (NT n-tiles), slab by slab; frag(kt,
+// x) gives A's k-tile kt.  Fully unrolled: register A indexes by constants.
+template <int NT, int KT, class Frag>
+__device__ __forceinline__ void run_block(float (&acc)[NT][4], Ring& r,
+                                          const Params& p, Frag frag,
+                                          int lane) {
+  constexpr int kSlabKt = kSlabBytes / (NT * 512);
+#pragma unroll
+  for (int s = 0; s < (KT + kSlabKt - 1) / kSlabKt; ++s) {
+    const float* w = ring_next(r, p);
+#pragma unroll
+    for (int kt = s * kSlabKt; kt < KT && kt < (s + 1) * kSlabKt; ++kt) {
+      float x[4];
+      frag(kt, x);
+      mma_ktile<NT>(acc, x, w + (kt - s * kSlabKt) * NT * 128, lane);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) epi(r0 + i, c0 + j, acc[i][j]);
+    ring_done(r, lane);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) fused_mlp_f32_kernel(const Params p) {
+// the same for a fan-in set by view_num, A from staged feats
+__device__ __forceinline__ void run_block_feats(float (&acc)[16][4], Ring& r,
+                                                const Params& p, int kts,
+                                                const float* xf, int c0,
+                                                int ncols, int lane) {
+  constexpr int kSlabKt = kSlabBytes / (16 * 512);
+  for (int s0 = 0; s0 < kts; s0 += kSlabKt) {
+    const float* w = ring_next(r, p);
+    const int n = kts - s0 < kSlabKt ? kts - s0 : kSlabKt;
+    for (int kt = 0; kt < n; ++kt) {
+      float x[4];
+      frag_feats(x, xf, p.F, c0, ncols, s0 + kt, lane);
+      mma_ktile<16>(acc, x, w + kt * 16 * 128, lane);
+    }
+    ring_done(r, lane);
+  }
+}
+
+// trunk epilogue: h = relu(acc * depth_bias), in f32
+__device__ __forceinline__ void epi_trunk(float (&h)[16][4],
+                                          const float (&acc)[16][4],
+                                          const float4* db, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const float4 d = db[nt * 32 + lane];
+    h[nt][0] = fmaxf(acc[nt][0] * d.x, 0.0f);
+    h[nt][1] = fmaxf(acc[nt][1] * d.y, 0.0f);
+    h[nt][2] = fmaxf(acc[nt][2] * d.z, 0.0f);
+    h[nt][3] = fmaxf(acc[nt][3] * d.w, 0.0f);
+  }
+}
+
+// PE(x) of the warp's 16 staged rows x [16, 3] into pe (row stride ld), in
+// f32, zero up to column `cols`; one sincosf per (point, coordinate,
+// frequency)
+__device__ void stage_pe(float* pe, int ld, const float* x, int L, int cols,
+                         int lane) {
+  for (int i = lane; i < 16 * 3 * L; i += 32) {
+    const int r = i / (3 * L), j = i % (3 * L);
+    const float v = x[3 * r + j % 3];
+    float sn, cs;
+    sincosf(v * (float)(1 << (j / 3)), &sn, &cs);
+    pe[r * ld + 3 + j] = sn;
+    pe[r * ld + 3 + 3 * L + j] = cs;
+    if (j < 3) pe[r * ld + j] = v;
+  }
+  const int pad = cols - 3 - 6 * L;
+  for (int i = lane; i < 16 * pad; i += 32)
+    pe[(i / pad) * ld + cols - pad + i % pad] = 0.0f;
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+fused_mlp_f32_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* X = reinterpret_cast<float*>(smem + Smem::x);    // [pe_pts 64 | h 128]
-  float* Y = reinterpret_cast<float*>(smem + Smem::y);    // h ping-pong / mvs_colors
-  float* DB = reinterpret_cast<float*>(smem + Smem::db);  // depth_bias
-  float* FB = reinterpret_cast<float*>(smem + Smem::fb);  // feats_bias
-  float* Z = reinterpret_cast<float*>(smem + Smem::z);    // [feature 128 | pe_dirs 32]
-  float* W = reinterpret_cast<float*>(smem + Smem::w);
-  float* base = reinterpret_cast<float*>(smem + Smem::base);    // [kTile, 4]
-  float* adapt = reinterpret_cast<float*>(smem + Smem::adapt);  // [kTile, 4]
-  float* u = reinterpret_cast<float*>(smem + Smem::u);          // [kTile]
-
-  const int p0 = blockIdx.x * kTile;
-  const int cdb = 24 + 4 * p.v1, cfb = 8 * p.v1;       // unpadded fan-ins
-  const int kdb = p.k[L_DB], kfb = p.k[L_FB];          // padded fan-ins
-
-  // ---- inputs: feats split into mvs_colors (Y), img_feats (X[:, 64:]), u
-  for (int i = threadIdx.x; i < kTile * p.F; i += kThreads) {
-    const int r = i / p.F, j = i % p.F;
-    const float v = p0 + r < p.P ? p.feats[(size_t)p0 * p.F + i] : 0.0f;
-    if (j < cdb) Y[r * kLdY + j] = v;
-    else if (j < cdb + cfb) X[r * kLdX + kPePtsPad + j - cdb] = v;
-    else if (j == p.F - 1) u[r] = 1.0f - v;
-  }
-  for (int i = threadIdx.x; i < kTile * kLdZ; i += kThreads) {
-    const int r = i / kLdZ, j = i % kLdZ;
-    if (j >= cdb && j < kdb) Y[r * kLdY + j] = 0.0f;
-    if (j >= cfb && j < kfb) X[r * kLdX + kPePtsPad + j] = 0.0f;
-    if (j < kPePtsPad) {        // PE(pts) -> X[:, 0:64]
-      float v = 0.0f;
-      if (j < kPePts && p0 + r < p.P) {
-        const float* x = p.pts + (size_t)(p0 + r) * 3;
-        v = pe_val(x[0], x[1], x[2], j, 10);
-      }
-      X[r * kLdX + j] = v;
+  const int nw = blockDim.x / 32, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int F = p.F, cdb = 24 + 4 * p.v1, cfb = 8 * p.v1, tile_pts = 16 * nw;
+  const Stage st(F);
+  unsigned char* base = smem + kFixedBytes + warp * st.bytes;
+  const float* xf = reinterpret_cast<const float*>(base + st.feats);
+  float* pe = reinterpret_cast<float*>(base + st.pe);
+  float4* db = reinterpret_cast<float4*>(base + st.db);
+  float* bias = reinterpret_cast<float*>(smem + kBiasOff);
+  const int my_tiles =
+      blockIdx.x < p.tiles ? (p.tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+                           : 0;
+  Ring ring{smem, reinterpret_cast<uint64_t*>(smem + kBarOff), 0,
+            my_tiles * p.nslabs};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(ring.bar + i, 1);              // full: the producer's arrive
+      mbar_init(ring.bar + kStages + i, nw);   // empty: one arrive per warp
     }
-    if (j >= kWidth && j < kWidth + kPeDirsPad) {   // PE(dirs) -> Z[:, 128:]
-      const int jj = j - kWidth;
-      float v = 0.0f;
-      if (jj < kPeDirs && p0 + r < p.P) {
-        const float* x = p.dirs + (size_t)((p0 + r) / p.S) * 3;
-        v = pe_val(x[0], x[1], x[2], jj, 4);
-      }
-      Z[r * kLdZ + j] = v;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < p.nbias; i += blockDim.x) bias[i] = p.b[i];
+  __syncthreads();
+  if (my_tiles == 0) return;
+  if (threadIdx.x == 0)
+    for (int nb = 0; nb < kLead && nb < ring.total; ++nb)
+      ring_issue(ring, p, nb);
+  prefetch_rows(p, st, base, blockIdx.x * tile_pts + warp * 16, lane);
+
+  auto regs = [](const float (&h)[16][4]) {
+    return [&h](int kt, float (&x)[4]) { frag_regs(x, h[kt]); };
+  };
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    const int p0 = tile * tile_pts + warp * 16;     // this warp's points
+    float h[16][4];
+
+    // ---- this tile's inputs (copied during the last tile), PE(pts), and
+    // depth_bias, kept in shared memory through the trunk
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+    stage_pe(pe, kLdPts, reinterpret_cast<const float*>(base + st.pts), 10,
+             64, lane);
+    {
+      float acc[16][4];
+      init_bias(acc, bias + p.b_off[S_DB], tq);
+      run_block_feats(acc, ring, p, p.k[S_DB] / 8, xf, 0, cdb, lane);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt)
+        db[nt * 32 + lane] =
+            make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
     }
-  }
-
-  const float* bias = p.b;
-  auto store = [&](float* dst, int ld, int layer) {
-    const float* bl = bias + p.b_off[layer];
-    return [=](int r, int c, float acc) { dst[r * ld + c] = acc + __ldg(bl + c); };
-  };
-  auto trunk = [&](float* dst, int ld, int layer) {
-    const float* bl = bias + p.b_off[layer];
-    return [=](int r, int c, float acc) {
-      dst[r * ld + c] = fmaxf((acc + __ldg(bl + c)) * DB[r * kLdY + c], 0.0f);
+    // ---- trunk; layer 5 takes [PE(pts) | h]
+    auto pe_pts = [&](int kt, float (&x)[4]) {
+      frag_smem(x, pe, kLdPts, kt, lane);
     };
-  };
-  auto relu = [&](float* dst, int ld, int layer) {
-    const float* bl = bias + p.b_off[layer];
-    return [=](int r, int c, float acc) {
-      dst[r * ld + c] = fmaxf(acc + __ldg(bl + c), 0.0f);
-    };
-  };
-  auto head = [&](float* dst, int off, int ncols, int layer) {
-    const float* bl = bias + p.b_off[layer];
-    return [=](int r, int c, float acc) {
-      if (c < ncols) dst[r * 4 + off + c] = acc + __ldg(bl + c);
-    };
-  };
-
-  float* Xh = X + kPePtsPad;
-  dense(Y, kLdY, p, L_DB, W, store(DB, kLdY, L_DB));
-  dense(Xh, kLdX, p, L_FB, W, store(FB, kLdY, L_FB));
-  // trunk, ping-pong X[:, 64:] <-> Y; after layer 4 X holds [pe_pts | h]
-  dense(X, kLdX, p, L_P0, W, trunk(Xh, kLdX, L_P0));
-  dense(Xh, kLdX, p, L_P1, W, trunk(Y, kLdY, L_P1));
-  dense(Y, kLdY, p, L_P2, W, trunk(Xh, kLdX, L_P2));
-  dense(Xh, kLdX, p, L_P3, W, trunk(Y, kLdY, L_P3));
-  dense(Y, kLdY, p, L_P4, W, trunk(Xh, kLdX, L_P4));
-  dense(X, kLdX, p, L_P5, W, trunk(Y, kLdY, L_P5));
-  // base heads from h = Y
-  dense(Y, kLdY, p, L_CRGB, W, head(base, 0, 3, L_CRGB));
-  dense(Y, kLdY, p, L_A1, W, head(base, 3, 1, L_A1));
-  // adaptive branch: X[:, 64:] = h * feats_bias; Z[:, :128] = feature
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTile * kWidth; i += kThreads) {
-    const int r = i / kWidth, c = i % kWidth;
-    Xh[r * kLdX + c] = Y[r * kLdY + c] * FB[r * kLdY + c];
-  }
-  dense(Xh, kLdX, p, L_FEAT, W, store(Z, kLdZ, L_FEAT));
-  dense(Z, kLdZ, p, L_V0, W, relu(Y, kLdY, L_V0));
-  dense(Z, kLdZ, p, L_VC0, W, relu(Y + kWidth / 2, kLdY, L_VC0));
-  dense(Y, kLdY, p, L_RGB, W, head(adapt, 0, 3, L_RGB));
-  dense(Y + kWidth / 2, kLdY, p, L_AL, W, head(adapt, 3, 1, L_AL));
-  __syncthreads();
-
-  // ---- uncertainty blend
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    if (p0 + r >= p.P) continue;
-    const float ur = u[r], vr = 1.0f - ur;
-    float4 o;
-    o.x = 1.0f / (1.0f + expf(-(base[r * 4 + 0] * vr + adapt[r * 4 + 0] * ur)));
-    o.y = 1.0f / (1.0f + expf(-(base[r * 4 + 1] * vr + adapt[r * 4 + 1] * ur)));
-    o.z = 1.0f / (1.0f + expf(-(base[r * 4 + 2] * vr + adapt[r * 4 + 2] * ur)));
-    o.w = fmaxf(adapt[r * 4 + 3] * vr + base[r * 4 + 3] * ur, 0.0f);
-    reinterpret_cast<float4*>(p.out)[p0 + r] = o;
+    {
+      float acc[16][4];
+      init_bias(acc, bias + p.b_off[S_P0], tq);
+      run_block<16, 8>(acc, ring, p, pe_pts, lane);
+      epi_trunk(h, acc, db, lane);
+    }
+    for (int l = S_P1; l <= S_P4; ++l) {
+      float acc[16][4];
+      init_bias(acc, bias + p.b_off[l], tq);
+      run_block<16, 16>(acc, ring, p, regs(h), lane);
+      epi_trunk(h, acc, db, lane);
+    }
+    {
+      float acc[16][4];
+      init_bias(acc, bias + p.b_off[S_P5], tq);
+      run_block<16, 24>(acc, ring, p, [&](int kt, float (&x)[4]) {
+        if (kt < 8) frag_smem(x, pe, kLdPts, kt, lane);
+        else frag_regs(x, h[kt - 8]);
+      }, lane);
+      epi_trunk(h, acc, db, lane);
+    }
+    // ---- base heads [confi_rgb | alpha_1](h): (r, g) in lanes tq 0,
+    // (b, alpha) in tq 1, rows g and g + 8; PE(dirs) replaces PE(pts)
+    float base_o[4], adapt_o[4], u[2];
+    __syncwarp();
+    stage_pe(pe, kLdDirs, reinterpret_cast<const float*>(base + st.dirs), 4,
+             32, lane);
+    {
+      float acc[1][4];
+      init_bias(acc, bias + p.b_off[S_HEAD], tq);
+      run_block<1, 16>(acc, ring, p, regs(h), lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) base_o[e] = acc[0][e];
+    }
+    // ---- h = h * feats_bias, the last use of the staged feats: the next
+    // tile's inputs start copying behind it
+    {
+      float acc[16][4];
+      init_bias(acc, bias + p.b_off[S_FB], tq);
+      run_block_feats(acc, ring, p, p.k[S_FB] / 8, xf, cdb, cfb, lane);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[nt][e] *= acc[nt][e];
+      u[0] = 1.0f - xf[g * F + F - 1];
+      u[1] = 1.0f - xf[(g + 8) * F + F - 1];
+      __syncwarp();
+      if (next < p.tiles)
+        prefetch_rows(p, st, base, next * tile_pts + warp * 16, lane);
+    }
+    // ---- feature; [feature | PE(dirs)] -> relu([views | view_confi])
+    {
+      float acc[16][4];
+      init_bias(acc, bias + p.b_off[S_FEAT], tq);
+      run_block<16, 16>(acc, ring, p, regs(h), lane);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[nt][e] = acc[nt][e];
+    }
+    {
+      float acc[16][4];
+      init_bias(acc, bias + p.b_off[S_VIEWS], tq);
+      run_block<16, 20>(acc, ring, p, [&](int kt, float (&x)[4]) {
+        if (kt < 16) frag_regs(x, h[kt]);
+        else frag_smem(x, pe, kLdDirs, kt - 16, lane);
+      }, lane);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[nt][e] = fmaxf(acc[nt][e], 0.0f);
+    }
+    // ---- adaptive heads: [views | view_confi] @ blockdiag(rgb, alpha)
+    {
+      float acc[1][4];
+      init_bias(acc, bias + p.b_off[S_OUT], tq);
+      run_block<1, 16>(acc, ring, p, regs(h), lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) adapt_o[e] = acc[0][e];
+    }
+    // ---- uncertainty blend
+    if (tq < 2) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pt = p0 + g + 8 * r;
+        if (pt >= p.P) continue;
+        const float ur = u[r], vr = 1.0f - ur;
+        const float b0 = base_o[2 * r], b1 = base_o[2 * r + 1];
+        const float a0 = adapt_o[2 * r], a1 = adapt_o[2 * r + 1];
+        float2 o;
+        o.x = 1.0f / (1.0f + expf(-(b0 * vr + a0 * ur)));
+        o.y = tq == 0 ? 1.0f / (1.0f + expf(-(b1 * vr + a1 * ur)))
+                      : fmaxf(a1 * vr + b1 * ur, 0.0f);
+        reinterpret_cast<float2*>(p.out)[(size_t)pt * 2 + tq] = o;
+      }
+    }
   }
 }
 
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Smem::total;
-  static_assert(smem <= 232448, "tile does not fit in shared memory");
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// Check the table against the blocks the kernel is written for, and cut
+// one tile's pass over the weights into slabs of whole k-tiles.
+cudaError_t plan(Params& p) {
+  p.nslabs = 0;
+  for (int i = 0; i < kNumSteps; ++i) {
+    const int fan_in = i == S_DB ? 24 + 4 * p.v1 : 8 * p.v1;
+    const int kt = kStepKt[i] ? kStepKt[i] : (fan_in + 7) / 8;
+    if (p.k[i] != 8 * kt || p.n[i] != 8 * kStepNt[i] || p.w_off[i] % 8 ||
+        p.b_off[i] % 2)
+      return cudaErrorInvalidValue;
+    const int rows = kSlabBytes / (8 * p.n[i]);
+    for (int r0 = 0; r0 < p.k[i]; r0 += rows) {
+      if (p.nslabs == kMaxSlabs) return cudaErrorInvalidValue;
+      p.slab_off[p.nslabs] = p.w_off[i] + 2 * r0 * p.n[i];
+      p.slab_bytes[p.nslabs++] = std::min(rows, p.k[i] - r0) * p.n[i] * 8;
+    }
+  }
+  p.nbias = p.b_off[kNumSteps - 1] + p.n[kNumSteps - 1];
+  return p.nbias * 4 <= kBiasBytes ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch(Params p, cudaStream_t stream) {
+  cudaError_t err = plan(p);
   if (err != cudaSuccess) return err;
-  const int blocks = (p.P + kTile - 1) / kTile;
-  fused_mlp_f32_kernel<<<blocks, kThreads, smem, stream>>>(p);
+  const int nw = warps_for(p.F);
+  if (nw < 1) return cudaErrorInvalidValue;
+  const size_t smem = smem_for(p.F);
+  err = cudaFuncSetAttribute(fused_mlp_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fused_mlp_f32_kernel, 32 * nw, smem);
+  if (err != cudaSuccess) return err;
+  p.tiles = (p.P + 16 * nw - 1) / (16 * nw);
+  const int blocks = std::min(p.tiles, sms * std::max(per_sm, 1));
+  fused_mlp_f32_kernel<<<blocks, 32 * nw, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -829,9 +1098,9 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // table: one row of (K, N, weight offset, bias offset) per weight block, in
-// elements, as kernels/fused_mlp.py packs them: 12 blocks in bf16
-// (BF16_STEPS), 15 in f32 (LAYER_NAMES).  Returns the CUDA error code of the
-// launch (0 on success).
+// elements, as kernels/fused_mlp.py packs them: the 12 blocks of
+// WEIGHT_STEPS in either mode.  Returns the CUDA error code of the launch (0
+// on success).
 int ucnerf_fused_mlp_forward(const float* pts, const float* dirs,
                              const float* feats, const void* w,
                              const float* b, float* out, int P, int S, int F,
@@ -853,8 +1122,8 @@ int ucnerf_fused_mlp_forward(const float* pts, const float* dirs,
   f32::Params p;
   p.pts = pts; p.dirs = dirs; p.feats = feats;
   p.w = static_cast<const float*>(w); p.b = b; p.out = out;
-  p.P = P; p.S = S; p.F = F; p.v1 = v1;
-  for (int i = 0; i < f32::kNumLayers; ++i) {
+  p.P = P; p.S = S; p.F = F; p.v1 = v1; p.tiles = 0;
+  for (int i = 0; i < kNumSteps; ++i) {
     p.k[i] = table[4 * i]; p.n[i] = table[4 * i + 1];
     p.w_off[i] = table[4 * i + 2]; p.b_off[i] = table[4 * i + 3];
   }
@@ -868,22 +1137,23 @@ int ucnerf_fused_mlp_forward(const float* pts, const float* dirs,
 int ucnerf_fused_mlp_attrs(int use_bf16, int v1, int* out) {
   const void* fn = use_bf16 ? (const void*)fused_mlp_bf16_kernel
                             : (const void*)f32::fused_mlp_f32_kernel;
-  const size_t smem = use_bf16 ? bf16_smem(24 + 12 * v1 + 1)
-                               : f32::Smem::total;
+  const int F = 24 + 12 * v1 + 1;
+  const int threads = use_bf16 ? kThreads : 32 * f32::warps_for(F);
+  const size_t smem = use_bf16 ? bf16_smem(F) : f32::smem_for(F);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
   if ((err = cudaFuncGetAttributes(&a, fn)) != cudaSuccess) return (int)err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                       smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)smem;
   out[3] = per_sm;
-  out[4] = use_bf16 ? kTileBf16 : f32::kTile;
+  out[4] = threads / 2;   // 16 points a warp
   return 0;
 }
 

@@ -2,14 +2,18 @@
 
 Replaces ``ucnerf_tpu/pallas/mlp_kernel.py::fused_nerf_mlp``.  The kernel
 (``csrc/fused_mlp.cu``) is bound by its arithmetic (about 720 FLOP per
-input byte at V=7).  bf16, the main path: mma.sync on the tensor cores
-with f32 accumulation, each warp's 16 points held in registers for the
-whole chain, 128 points per block sharing each pass over the weights,
-which stream from L2 through a two-stage ring in shared memory (bulk
-copies completed on mbarriers).
-The packing here merges layers that share an input into 12 blocks and
-stores each in mma.sync B-fragment order.  f32, for parity: FMA, weights
-streamed one layer at a time.  See the source's header.
+input byte at V=7).  Both modes run mma.sync on the tensor cores, each
+warp's 16 points held in registers for the whole chain, up to 128 points
+per block sharing each pass over the weights, which stream from L2
+through a ring in shared memory (bulk copies completed on mbarriers).
+bf16, the main path: m16n8k16 with f32 accumulation, a two-stage ring of
+whole blocks.  f32 (``--nerf_dtype float32``): m16n8k8 TF32, three
+products per product (3xTF32: big x big + big x small + small x big,
+each operand split into a TF32 big part and its f32 remainder; the
+weights here, the activations in the kernel), a four-stage ring of 16 KB
+k-slabs.  The packing here merges
+layers that share an input into the 12 blocks of ``WEIGHT_STEPS`` and
+stores each in its mode's B-fragment order.  See the source's header.
 
 On a CPU tensor the wrapper runs the plain version (``models.nerf``); on a
 CUDA tensor it launches the kernel or raises.
@@ -35,11 +39,11 @@ LAYER_NAMES = ["pts_bias_depth_fine", "pts_bias_confidence",
                "views_linears_0", "rgb_linear", "view_confi_linears_0",
                "alpha_linear"]
 PE_PTS = 63
-# the bf16 kernel's weight blocks, in its ring order: each is a list of
-# (layer, first input row); the parts of a block sit side by side in its
-# columns.  Three blocks merge layers that share an input, or (the last one,
+# the kernel's weight blocks, in its ring order: each is a list of (layer,
+# first input row); the parts of a block sit side by side in its columns.
+# Three blocks merge layers that share an input, or (the last one,
 # block-diagonal) that the kernel can multiply as one.
-BF16_STEPS = [
+WEIGHT_STEPS = [
     [("pts_bias_depth_fine", 0)],
     *([(f"pts_linears_{i}", 0)] for i in range(6)),
     [("confi_rgb_linear", 0), ("alpha_linear_1", 0)],
@@ -50,8 +54,8 @@ BF16_STEPS = [
 ]
 
 
-def _round16(n: int) -> int:
-    return (n + 15) // 16 * 16
+def _round_up(n: int, mult: int = 16) -> int:
+    return (n + mult - 1) // mult * mult
 
 
 def layer_blocks(mlp: UCNeRFMLP) -> List[Tuple[str, torch.Tensor,
@@ -81,13 +85,13 @@ def kernel_rows(name: str, w: torch.Tensor) -> torch.Tensor:
     return torch.cat([w[:PE_PTS], w.new_zeros((1, w.shape[1])), w[PE_PTS:]])
 
 
-def merge_block(parts):
+def merge_block(parts, mult: int = 16):
     """[(kernel [k, n], bias [n], first row)] -> one [K, N] block and its
-    [N] bias, zero-padded to multiples of 16, parts side by side."""
+    [N] bias, zero-padded to multiples of ``mult``, parts side by side."""
     K = max(r + w.shape[0] for w, _, r in parts)
     N = sum(w.shape[1] for w, _, _ in parts)
-    wp = parts[0][0].new_zeros((_round16(K), _round16(N)))
-    bp = parts[0][1].new_zeros(_round16(N))
+    wp = parts[0][0].new_zeros((_round_up(K, mult), _round_up(N, mult)))
+    bp = parts[0][1].new_zeros(_round_up(N, mult))
     col = 0
     for w, b, r in parts:
         wp[r:r + w.shape[0], col:col + w.shape[1]] = w
@@ -113,6 +117,36 @@ def unshuffle_b_fragments(flat: torch.Tensor, K: int, N: int):
             .permute(0, 5, 3, 6, 1, 4, 2).reshape(K, N))
 
 
+def split_tf32(w: torch.Tensor):
+    """f32 -> (big, small): big rounded to tf32 (to nearest, ties away
+    from zero: half a tf32 ulp added to the bits, the low 13 mantissa bits
+    cleared), small = w - big, exact in f32, so big + small == w."""
+    big = ((w.contiguous().view(torch.int32) + 0x1000)
+           & ~0x1FFF).view(torch.float32)
+    return big, w - big
+
+
+def shuffle_tf32_fragments(w: torch.Tensor) -> torch.Tensor:
+    """A [K, N] f32 block (multiples of 8) -> flat, split into tf32 big and
+    small (``split_tf32``), in mma.sync m16n8k8 tf32 B-fragment order with
+    the rows of each group of 8 permuted: for each k-tile kt and n-tile nt,
+    32 lanes x 4 values, lane = 4 g + t holding (k, n) = (8 kt + 2 t + kl,
+    8 nt + g) of big at kl and of small at 2 + kl.  So b0 and b1 (logical
+    rows t and t + 4) are input rows 2 t and 2 t + 1, the columns an
+    accumulator lane holds, and one 16-byte load gives a lane both parts
+    of its B fragment."""
+    K, N = w.shape
+    return (torch.stack(split_tf32(w)).reshape(2, K // 8, 4, 2, N // 8, 8)
+            .permute(1, 4, 5, 2, 0, 3).reshape(-1))
+
+
+def unshuffle_tf32_fragments(flat: torch.Tensor, K: int, N: int):
+    """The inverse of ``shuffle_tf32_fragments``: flat -> (big, small),
+    each [K, N]; big + small is the block."""
+    return (flat.reshape(K // 8, N // 8, 8, 4, 2, 2)
+            .permute(4, 0, 3, 5, 1, 2).reshape(2, K, N).unbind(0))
+
+
 class PackedMLP(NamedTuple):
     weights: torch.Tensor      # flat, bf16 or f32
     biases: torch.Tensor       # flat f32
@@ -133,7 +167,7 @@ def fused_mlp_unsupported(mlp: UCNeRFMLP) -> Optional[str]:
         return (f"the fused MLP kernel takes width 128, depth 6, skips "
                 f"(4,), multires 10/4, not {shape}")
     v1 = nerf.view_num - 1
-    if _round16(24 + 4 * v1) > 128 or _round16(8 * v1) > 128:
+    if _round_up(24 + 4 * v1) > 128 or _round_up(8 * v1) > 128:
         return (f"the fused MLP kernel takes view_num <= 17, not "
                 f"{nerf.view_num}")
     return None
@@ -141,9 +175,12 @@ def fused_mlp_unsupported(mlp: UCNeRFMLP) -> Optional[str]:
 
 def pack_mlp_weights(mlp: UCNeRFMLP) -> PackedMLP:
     """Pad and pack a ``UCNeRFMLP``'s 15 layers for the kernel, in its
-    compute dtype (``mlp.nerf.dtype``: bf16, or None for f32).  f32: one
-    row-major block per layer in ``LAYER_NAMES`` order.  bf16: the blocks
-    of ``BF16_STEPS`` in B-fragment order (``shuffle_b_fragments``)."""
+    compute dtype (``mlp.nerf.dtype``: bf16, or None for f32), as the 12
+    blocks of ``WEIGHT_STEPS``.  bf16: padded to multiples of 16, in
+    m16n8k16 B-fragment order (``shuffle_b_fragments``).  f32: padded to
+    multiples of 8, each weight split into tf32 big and small, in m16n8k8
+    tf32 B-fragment order (``shuffle_tf32_fragments``).  Offsets count
+    elements of the packed buffer."""
     reason = fused_mlp_unsupported(mlp)
     if reason:
         raise ValueError(reason)
@@ -151,16 +188,16 @@ def pack_mlp_weights(mlp: UCNeRFMLP) -> PackedMLP:
     use_bf16 = nerf.dtype == torch.bfloat16
     layers = {name: (kernel_rows(name, w), b)
               for name, w, b in layer_blocks(mlp)}
-    steps = (BF16_STEPS if use_bf16
-             else [[(name, 0)] for name in LAYER_NAMES])
+    mult, shuffle = ((16, shuffle_b_fragments) if use_bf16
+                     else (8, shuffle_tf32_fragments))
     ws, bs, table = [], [], []
     w_off = b_off = 0
-    for parts in steps:
-        wp, bp = merge_block([(*layers[name], r) for name, r in parts])
+    for parts in WEIGHT_STEPS:
+        wp, bp = merge_block([(*layers[name], r) for name, r in parts], mult)
+        ws.append(shuffle(wp))
         table += [wp.shape[0], wp.shape[1], w_off, b_off]
-        w_off += wp.numel()
+        w_off += ws[-1].numel()
         b_off += bp.numel()
-        ws.append(shuffle_b_fragments(wp) if use_bf16 else wp.reshape(-1))
         bs.append(bp)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     return PackedMLP(torch.cat(ws).to(dtype).contiguous(),

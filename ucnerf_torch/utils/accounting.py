@@ -52,8 +52,10 @@ SCATTER_NS_PER_ROW = 0.12
 # H100 SXM (80GB HBM3, 700 W) dense bf16 tensor-core rate; override for
 # other cards via UCNERF_PEAK_TFLOPS
 PEAK_TFLOPS = float(os.environ.get("UCNERF_PEAK_TFLOPS", 989.0))
-# H100 SXM FP32 rate outside the tensor cores (K1's f32 path)
+# H100 SXM FP32 rate outside the tensor cores, and its dense TF32
+# tensor-core rate (NVIDIA's H100 SXM datasheet)
 PEAK_TFLOPS_F32 = 67.0
+PEAK_TFLOPS_TF32 = 494.7
 
 # H100 SXM HBM3 bandwidth; override via UCNERF_PEAK_HBM_GBPS
 PEAK_HBM_GBPS = float(os.environ.get("UCNERF_PEAK_HBM_GBPS", 3350.0))
@@ -145,6 +147,15 @@ def nerf_mlp_flops(cfg, n_pts: int) -> float:
     f += 2 * (_dense(h1, Wd // 2, n_pts))        # views / view_confi
     f += _dense(Wd // 2, 3, n_pts) + _dense(Wd // 2, 1, n_pts)
     return f
+
+
+def f32_matmul_seconds(flops: float) -> float:
+    """The least time the card takes for ``flops`` of matmul at f32
+    accuracy: the least of the FMA route (at PEAK_TFLOPS_F32) and the
+    3xTF32 route, three TF32 products per product on the tensor cores (at
+    PEAK_TFLOPS_TF32), which K1's f32 kernel takes."""
+    return min(flops / (PEAK_TFLOPS_F32 * 1e12),
+               3.0 * flops / (PEAK_TFLOPS_TF32 * 1e12))
 
 
 def nerf_mlp_bytes(cfg, n_rays: int, n_samples: int,
